@@ -1,0 +1,188 @@
+"""Entry point of the port: the flagship q01 query stage.
+
+``entry(device=None)`` returns ``(fn, (batch,))``: the fused
+filter → group → aggregate step over one columnar batch, and an example
+batch. It runs on the card unless the caller passes another device.
+
+The stage (the port of ``__graft_entry__._q01_kernel``):
+
+1. a ``DeviceBatch`` of (k int64, v float64, f int32);
+2. the predicate ``f > 10 AND v IS NOT NULL`` (exprs/eval.py);
+3. keys clipped into the bounded domain [0, 2^16): out-of-range keys
+   land in the boundary groups, a guard rather than a semantics;
+4. a dense grouped (sum, count) over the 2^16 keys
+   (kernels/grouped_agg.sum_count), the backend chosen by
+   kernels/dispatch.py;
+5. avg = sum / count.
+
+It returns dense group state over the domain: (group_keys, key_valid,
+sums, counts, avg). ``_q01_kernel_sort`` computes the same query on the
+unbounded general path (xxhash64 → stable sort → segment sum) and is
+the differential reference for the dense stage.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from auron_tpu_torch import resolve_device
+from auron_tpu_torch.columnar.batch import DeviceBatch, batch_from_numpy
+from auron_tpu_torch.columnar.schema import DataType, Field, Schema
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.eval import evaluate
+from auron_tpu_torch.kernels import dispatch, registry
+from auron_tpu_torch.kernels import grouped_agg as gagg
+from auron_tpu_torch.ops import hashing
+
+_SCHEMA = Schema((
+    Field("k", DataType.INT64),       # group key (customer id class)
+    Field("v", DataType.FLOAT64),     # measure (return amount class)
+    Field("f", DataType.INT32),       # filter column (store id class)
+))
+
+# q01 shape: WHERE f > threshold AND v IS NOT NULL GROUP BY k
+#            SELECT k, sum(v), count(v), avg(v)
+_PREDICATE = ir.BinaryExpr(
+    "and",
+    ir.BinaryExpr(">", ir.ColumnRef(2), ir.Literal(10, DataType.INT32)),
+    ir.IsNotNull(ir.ColumnRef(1)),
+)
+
+#: bounded group-key domain of the flagship stage: 2^16 keys
+_DOMAIN = 1 << 16
+
+_INT64_MAX = torch.iinfo(torch.int64).max
+
+
+def _keep(batch: DeviceBatch) -> torch.Tensor:
+    """Live rows that pass the predicate (a null predicate drops)."""
+    pred = evaluate(_PREDICATE, batch, _SCHEMA)
+    return batch.row_mask() & pred.validity & pred.data.bool()
+
+
+def _q01_kernel(batch: DeviceBatch):
+    """The flagship stage on ``batch``'s device, its grouped-agg backend
+    resolved through the dispatch policy at this call."""
+    return flagship_kernel(batch.device)(batch)
+
+
+def _q01_kernel_impl(batch: DeviceBatch, backend: str, interpret: bool):
+    keep = _keep(batch)
+    kcol = batch.column(0)
+    vcol = batch.column(1)
+    vv = vcol.validity & keep
+    k = kcol.data.clamp(0, _DOMAIN - 1).to(torch.int32)
+    v = torch.where(vv, vcol.data, 0.0).to(torch.float32)
+    c = vv.to(torch.float32)
+
+    sums_g, cnt_g = gagg.sum_count(k, v, c, _DOMAIN, backend=backend,
+                                   interpret=interpret)
+
+    sums = sums_g.to(torch.float64)
+    counts = cnt_g.to(torch.int64)  # exact below 2^24
+    group_keys = torch.arange(_DOMAIN, dtype=torch.int64,
+                              device=batch.device)
+    key_valid = counts > 0
+    avg = torch.where(key_valid, sums / counts.clamp(min=1), 0.0)
+    return group_keys, key_valid, sums, counts, avg
+
+
+@functools.lru_cache(maxsize=8)
+def _flagship_fn(backend: str, interpret: bool):
+    def kernel(batch):
+        return _q01_kernel_impl(batch, backend, interpret)
+    kernel.__name__ = f"_q01_kernel_{backend}" + \
+        ("_interpret" if interpret else "")
+    return kernel
+
+
+def flagship_kernel(device=None):
+    """Resolve the grouped-agg backend for ``device`` (default: the card)
+    through the dispatch policy and return the flagship stage bound to
+    it — one function object per (backend, interpret)."""
+    dev = resolve_device(device)
+    # record=False: the flagship is dense by contract, so it overrides a
+    # declined policy; the counters below name the backend that runs
+    decision = dispatch.select_grouped_agg(
+        key_domain=_DOMAIN, key_dtypes=(DataType.INT64,),
+        agg_fns=("sum", "count", "avg"),
+        value_dtypes=(DataType.FLOAT64,), platform=dev.type, record=False)
+    if decision.is_dense:
+        backend, interpret = decision.kernel, decision.interpret
+    else:
+        backend, interpret = "dense_matmul", False
+    registry.stats(backend).add("selected")
+    if interpret:
+        registry.stats(backend).add("interpret")
+    return _flagship_fn(backend, interpret)
+
+
+def _q01_kernel_sort(batch: DeviceBatch):
+    """Unbounded-domain variant: xxhash64 → stable sort → segment sum.
+    Group order is the reference's: by signed int64 hash, then by first
+    appearance; dead rows sort last under the int64-max sentinel."""
+    cap = batch.capacity
+    dev = batch.device
+    keep = _keep(batch)
+    kcol = batch.column(0)
+    vcol = batch.column(1)
+
+    h = hashing.xxhash64_columns([kcol], cap)
+    sort_key = torch.where(keep, h, _INT64_MAX)
+    perm = torch.argsort(sort_key, stable=True)
+    h_s = sort_key[perm]
+    k_s = kcol.data[perm]
+    v_s = torch.where(vcol.validity, vcol.data, 0.0)[perm]
+    vv_s = (vcol.validity & keep)[perm]
+    keep_s = keep[perm]
+
+    # segment boundaries: first row of each (hash, key) run
+    new_run = (h_s[1:] != h_s[:-1]) | (k_s[1:] != k_s[:-1])
+    is_first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          new_run]) & keep_s
+    seg = torch.cumsum(is_first, 0) - 1
+    seg = torch.where(keep_s, seg, cap - 1)
+
+    sums = torch.zeros(cap, dtype=torch.float64, device=dev).index_add_(
+        0, seg, torch.where(vv_s, v_s, 0.0))
+    counts = torch.zeros(cap, dtype=torch.int64, device=dev).index_add_(
+        0, seg, vv_s.to(torch.int64))
+    # each slot takes the key of the last row of its segment (dead rows
+    # share slot cap - 1), as the reference's scatter leaves it; seg is
+    # non-decreasing, so that row is where seg steps up or the array ends;
+    # every other row writes to a spare slot past the end
+    is_last = torch.cat([seg[1:] != seg[:-1],
+                         torch.ones(1, dtype=torch.bool, device=dev)])
+    group_keys = torch.zeros(cap + 1, dtype=kcol.data.dtype, device=dev)
+    group_keys = group_keys.scatter_(
+        0, torch.where(is_last, seg, cap), k_s)[:cap]
+    n_groups = is_first.sum()
+    key_valid = torch.arange(cap, device=dev) < n_groups
+
+    avg = torch.where(counts > 0, sums / counts.to(torch.float64), 0.0)
+    return group_keys, key_valid, sums, counts, avg
+
+
+def _example_batch(capacity: int = 8192, seed: int = 0,
+                   device=None) -> DeviceBatch:
+    """The reference's example batch, from the same seed: keys in
+    [0, capacity/4), v normal with 5% nulls, f in [0, 40), and the last
+    eighth of the capacity left as padding."""
+    rng = np.random.default_rng(seed)
+    n = capacity - capacity // 8
+    k = rng.integers(0, capacity // 4, size=capacity).astype(np.int64)
+    v = rng.normal(size=capacity)
+    f = rng.integers(0, 40, size=capacity).astype(np.int32)
+    v_valid = rng.random(capacity) > 0.05
+    ones = np.ones(capacity, np.bool_)
+    return batch_from_numpy([(k, ones), (v, v_valid), (f, ones)], n,
+                            resolve_device(device))
+
+
+def entry(device=None):
+    """Returns (fn, example_args): the flagship step and its inputs, on
+    the card unless ``device`` names another."""
+    return _q01_kernel, (_example_batch(device=resolve_device(device)),)

@@ -1,0 +1,261 @@
+"""Expression evaluation on device batches, the primitive subset.
+
+The port of ``auron_tpu.exprs.eval`` for the nodes in ``exprs/ir.py``:
+column references, literals, binary arithmetic and comparisons with
+numeric promotion, Kleene ``and``/``or``, ``not``, ``is null`` and
+``is not null``. Null semantics follow Spark/SQL: arithmetic and
+comparisons propagate null, ``x / 0`` and ``x % 0`` are null, and
+``and``/``or`` are three-valued. Every other node raises
+``NotImplementedError`` naming it.
+
+Each node becomes a few elementwise tensor ops on the batch's device;
+nothing reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from auron_tpu_torch.columnar.batch import DeviceBatch, PrimitiveColumn
+from auron_tpu_torch.columnar.schema import DataType, Schema
+from auron_tpu_torch.exprs import ir
+
+
+@dataclass(frozen=True)
+class TypedValue:
+    col: PrimitiveColumn
+    dtype: DataType
+    precision: int = 0
+    scale: int = 0
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self.col.data
+
+    @property
+    def validity(self) -> torch.Tensor:
+        return self.col.validity
+
+
+_RANK = [DataType.INT8, DataType.INT16, DataType.INT32, DataType.INT64,
+         DataType.FLOAT32, DataType.FLOAT64]
+
+_INT_BITS = {DataType.INT8: 8, DataType.INT16: 16, DataType.INT32: 32,
+             DataType.INT64: 64}
+
+#: types whose casts the numeric arm of ``cast_value`` covers
+_NUMERIC_CAST = frozenset(_RANK) | {DataType.BOOL}
+
+_COMPARE = {"==": torch.eq, "!=": torch.ne, "<": torch.lt,
+            "<=": torch.le, ">": torch.gt, ">=": torch.ge}
+
+
+def common_type(a: DataType, b: DataType) -> DataType:
+    if a == b:
+        return a
+    if a == DataType.NULL:
+        return b
+    if b == DataType.NULL:
+        return a
+    if a == DataType.DECIMAL or b == DataType.DECIMAL:
+        # decimal vs float → float64; decimal vs int → decimal
+        if b.is_floating or a.is_floating:
+            return DataType.FLOAT64
+        return DataType.DECIMAL
+    if a in _RANK and b in _RANK:
+        return _RANK[max(_RANK.index(a), _RANK.index(b))]
+    if {a, b} <= {DataType.DATE32, DataType.STRING}:
+        return DataType.DATE32
+    if {a, b} <= {DataType.TIMESTAMP_US, DataType.STRING}:
+        return DataType.TIMESTAMP_US
+    raise TypeError(f"no common type for {a} and {b}")
+
+
+def _const_column(value, dtype: DataType, capacity: int,
+                  device: torch.device) -> PrimitiveColumn:
+    """Materialize a literal as a broadcast column."""
+    if dtype in (DataType.STRING, DataType.DECIMAL):
+        raise NotImplementedError(f"literal of type {dtype.value}")
+    tdt = dtype.to_torch()
+    if value is None:
+        return PrimitiveColumn(
+            torch.zeros(capacity, dtype=tdt, device=device),
+            torch.zeros(capacity, dtype=torch.bool, device=device))
+    return PrimitiveColumn(
+        torch.full((capacity,), value, dtype=tdt, device=device),
+        torch.ones(capacity, dtype=torch.bool, device=device))
+
+
+def evaluate(expr: ir.Expr, batch: DeviceBatch,
+             schema: Schema) -> TypedValue:
+    """Evaluate ``expr`` against ``batch``."""
+    cap = batch.capacity
+    if isinstance(expr, ir.ColumnRef):
+        f = schema[expr.index]
+        return TypedValue(batch.columns[expr.index], f.dtype, f.precision,
+                          f.scale)
+
+    if isinstance(expr, ir.Literal):
+        return TypedValue(_const_column(expr.value, expr.dtype, cap,
+                                        batch.device),
+                          expr.dtype, expr.precision, expr.scale)
+
+    if isinstance(expr, ir.BinaryExpr):
+        return _eval_binary(expr, batch, schema)
+
+    if isinstance(expr, ir.Not):
+        v = evaluate(expr.child, batch, schema)
+        return TypedValue(PrimitiveColumn(~v.data.bool(), v.validity),
+                          DataType.BOOL)
+
+    if isinstance(expr, (ir.IsNull, ir.IsNotNull)):
+        v = evaluate(expr.child, batch, schema)
+        present = v.validity if isinstance(expr, ir.IsNotNull) \
+            else ~v.validity
+        return TypedValue(
+            PrimitiveColumn(present & batch.row_mask(),
+                            torch.ones(cap, dtype=torch.bool,
+                                       device=batch.device)),
+            DataType.BOOL)
+
+    raise NotImplementedError(f"expression {type(expr).__name__}")
+
+
+def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
+    """Static result type of an expression (dtype, precision, scale)."""
+    if isinstance(expr, ir.ColumnRef):
+        f = schema[expr.index]
+        return f.dtype, f.precision, f.scale
+    if isinstance(expr, ir.Literal):
+        return expr.dtype, expr.precision, expr.scale
+    if isinstance(expr, ir.BinaryExpr):
+        if expr.op in ("==", "!=", "<", "<=", ">", ">=", "and", "or"):
+            return DataType.BOOL, 0, 0
+        lt = infer_dtype(expr.left, schema)[0]
+        rt = infer_dtype(expr.right, schema)[0]
+        if lt == DataType.DECIMAL and rt == DataType.DECIMAL:
+            raise NotImplementedError("infer_dtype for decimal arithmetic")
+        return common_type(lt, rt), 0, 0
+    if isinstance(expr, (ir.Not, ir.IsNull, ir.IsNotNull)):
+        return DataType.BOOL, 0, 0
+    raise NotImplementedError(f"infer_dtype for {type(expr).__name__}")
+
+
+def _numeric_promote(v: TypedValue, target: DataType) -> TypedValue:
+    if v.dtype == target:
+        return v
+    return cast_value(v, target)
+
+
+def _eval_binary(expr: ir.BinaryExpr, batch: DeviceBatch,
+                 schema: Schema) -> TypedValue:
+    op = expr.op
+    l = evaluate(expr.left, batch, schema)
+    r = evaluate(expr.right, batch, schema)
+
+    if op in ("and", "or"):
+        ld, rd = l.data.bool(), r.data.bool()
+        lv, rv = l.validity, r.validity
+        if op == "and":
+            data = (ld & lv) & (rd & rv)
+            # null unless any FALSE or both valid
+            validity = (lv & rv) | (lv & ~ld) | (rv & ~rd)
+        else:
+            data = (ld & lv) | (rd & rv)
+            validity = (lv & rv) | (lv & ld) | (rv & rd)
+        return TypedValue(PrimitiveColumn(data, validity), DataType.BOOL)
+
+    if DataType.DECIMAL in (l.dtype, r.dtype) \
+            or DataType.STRING in (l.dtype, r.dtype):
+        raise NotImplementedError(
+            f"binary {op} on {l.dtype.value} and {r.dtype.value}")
+
+    target = common_type(l.dtype, r.dtype)
+    l = _numeric_promote(l, target)
+    r = _numeric_promote(r, target)
+    ld, rd = l.data, r.data
+    validity = l.validity & r.validity
+
+    if op in _COMPARE:
+        return TypedValue(PrimitiveColumn(_COMPARE[op](ld, rd), validity),
+                          DataType.BOOL)
+
+    if op == "+":
+        data = ld + rd
+    elif op == "-":
+        data = ld - rd
+    elif op == "*":
+        data = ld * rd
+    elif op == "/":
+        if target.is_floating:
+            # Spark double semantics: x/0 → null (non-ANSI divide)
+            data = ld / torch.where(rd == 0, 1.0, rd)
+        else:
+            # Java-style truncating division; x/0 → null
+            safe = torch.where(rd == 0, 1, rd)
+            data = torch.sign(ld) * torch.sign(safe) \
+                * (torch.abs(ld) // torch.abs(safe))
+        validity = validity & (rd != 0)
+    elif op == "%":
+        safe = torch.where(rd == 0, 1, rd)
+        if target.is_floating:
+            data = torch.where(rd == 0, torch.nan,
+                               ld - torch.trunc(ld / safe) * safe)
+        else:
+            data = ld - (torch.sign(ld) * torch.sign(safe)
+                         * (torch.abs(ld) // torch.abs(safe))) * safe
+            validity = validity & (rd != 0)
+    else:
+        raise NotImplementedError(f"binary op {op}")
+    return TypedValue(PrimitiveColumn(data, validity), target)
+
+
+def _eval_binary_simple(op: str, l: TypedValue,
+                        r: TypedValue) -> TypedValue:
+    """Arithmetic or comparison on operands already of one float type
+    (no null-on-zero rules)."""
+    validity = l.validity & r.validity
+    fn = {"+": torch.add, "-": torch.sub, "*": torch.mul,
+          "/": torch.div, **_COMPARE}[op]
+    out_t = DataType.BOOL if op in _COMPARE else DataType.FLOAT64
+    return TypedValue(PrimitiveColumn(fn(l.data, r.data), validity), out_t)
+
+
+def cast_value(v: TypedValue, dtype: DataType) -> TypedValue:
+    """Spark (non-ANSI) casts between bool, integer and float types; the
+    decimal, string and date arms come with later slices."""
+    if v.dtype == dtype:
+        return v
+    if v.dtype not in _NUMERIC_CAST or dtype not in _NUMERIC_CAST:
+        raise NotImplementedError(f"cast {v.dtype} -> {dtype}")
+    validity = v.validity
+    d = v.data
+
+    if dtype == DataType.BOOL:
+        return TypedValue(PrimitiveColumn(d != 0, validity), DataType.BOOL)
+
+    if v.dtype == DataType.BOOL:
+        d = d.to(torch.int32)
+
+    if dtype in _INT_BITS:
+        target = dtype.to_torch()
+        if v.dtype.is_floating:
+            # Spark non-ANSI Cast: truncate toward zero; NaN, ±inf and
+            # values outside the target range become NULL. As in Spark,
+            # where Long.MaxValue promotes to double 2^63, the input
+            # exactly 2^63 is admitted and saturates to MaxValue.
+            bits = _INT_BITS[dtype]
+            t = torch.trunc(d.to(torch.float64))
+            ok = (t >= -(2.0 ** (bits - 1))) \
+                & (t <= float(2 ** (bits - 1) - 1))  # False for NaN/±inf
+            at_top = t >= 2.0 ** (bits - 1)
+            out = torch.where(ok & ~at_top, t, 0.0).to(target)
+            out = out.masked_fill(at_top, 2 ** (bits - 1) - 1)
+            return TypedValue(PrimitiveColumn(out, validity & ok), dtype)
+        # int→int narrowing wraps (Java semantics)
+        return TypedValue(PrimitiveColumn(d.to(target), validity), dtype)
+
+    return TypedValue(PrimitiveColumn(d.to(dtype.to_torch()), validity),
+                      dtype)
