@@ -5,9 +5,14 @@ The port of ``auron_tpu.kernels.grouped_agg``:
 ``cuda_sum_count``
     The hand-written CUDA kernel (``csrc/grouped_agg.cu``) that replaces
     the Pallas VMEM-accumulate kernel: one pass over the ~12 B/row
-    inputs, float atomics into [key_domain] grids that stay in L2. On a
-    CPU tensor the wrapper runs ``sum_count_reference``, its plain
-    version; on a CUDA tensor it launches the kernel or raises.
+    inputs in 16-byte loads; equal keys are combined within a thread and
+    across the warp, and each remaining (sum, count) goes in with one
+    8-byte vector atomic, into an interleaved (key_domain, 2)
+    accumulator that stays in L2, or, for small domains, into a block's
+    private copy in shared memory first. ``_plan`` picks the path and the
+    grid from the card's SM count and occupancy. On a CPU tensor the
+    wrapper runs ``sum_count_reference``, its plain version; on a CUDA
+    tensor it launches the kernel or raises.
 
 ``dense_matmul_sum_count``
     The one-hot matmul formulation, in full f32, tiled over row blocks.
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -100,26 +106,130 @@ def _validate(k, v, c, key_domain: int, blk: int) -> None:
     grid_dims(key_domain)
 
 
+#: rows a thread loads per pass (one int4 and two float4)
+_ROWS_PER_THREAD = 4
+#: launch paths: rows go straight to the global accumulators, or through
+#: a block's private copy in shared memory
+PATH_GLOBAL, PATH_SHARED = 0, 1
+#: ``_launch``'s kernels: the redesign, which ``cuda_sum_count`` runs, and
+#: the first design's loop, reached only for chip_smoke.py's comparison
+_VARIANTS = ("redesign", "pr1")
+
+
+class DeviceProps(NamedTuple):
+    """What ``_plan`` needs of a card, for one domain
+    (``cuda_dense_sum_count_props`` in csrc/grouped_agg.cu)."""
+    sms: int               # streaming multiprocessors
+    smem_optin: int        # dynamic shared memory a block may opt in to, B
+    global_occupancy: int  # resident blocks per SM, global path
+    shared_occupancy: int  # resident blocks per SM, shared path (0: no fit)
+    threads: int           # threads per block, global path
+    shared_threads: int    # threads per block, shared path
+
+
+def _blocks(n: int, threads: int, resident: int) -> int:
+    """Blocks that fill the card (``resident``) without one that has no
+    4-row vector for each of its threads; never 0."""
+    busy = -(-n // (threads * _ROWS_PER_THREAD))
+    return max(1, min(resident, busy))
+
+
+def _plan(n: int, key_domain: int, props: DeviceProps,
+          path: int | None = None) -> tuple[int, int, int]:
+    """(path, blocks, smem_bytes) of a launch over ``n`` rows.
+
+    The shared-memory path keeps one float2 per key in each block, so it
+    needs 8 * key_domain bytes to fit, and rows enough that each block
+    sees a row per key, so that a block's flush of up to key_domain
+    atomics stays small beside its rows; otherwise rows go straight to
+    the global accumulators. ``path`` forces one of the two. Blocks fill
+    the card: SMs x resident blocks per SM."""
+    smem = 8 * key_domain
+    fits = props.shared_occupancy > 0 and smem <= props.smem_optin
+    shared_blocks = _blocks(n, props.shared_threads,
+                            props.sms * props.shared_occupancy)
+    if path is None:
+        path = PATH_SHARED if fits and n >= key_domain * shared_blocks \
+            else PATH_GLOBAL
+    if path == PATH_SHARED:
+        if not fits:
+            raise ValueError(f"key_domain {key_domain} needs {smem} B of "
+                             f"shared memory; a block may have "
+                             f"{props.smem_optin} B")
+        return PATH_SHARED, shared_blocks, smem
+    if path != PATH_GLOBAL:
+        raise ValueError(f"unknown path {path}")
+    return PATH_GLOBAL, _blocks(n, props.threads,
+                                props.sms * props.global_occupancy), 0
+
+
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point, typed for ctypes."""
+    """The built kernel's C entry points, typed for ctypes: (launch,
+    launch of the first design, props)."""
     from auron_tpu_torch.kernels import _build
 
-    fn = _build.library("grouped_agg").cuda_dense_sum_count
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.library("grouped_agg")
+    operands = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p]
+    launch = lib.cuda_dense_sum_count
+    launch.argtypes = operands + [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p]
+    pr1 = lib.cuda_dense_sum_count_pr1
+    pr1.argtypes = operands + [ctypes.c_void_p]
+    props = lib.cuda_dense_sum_count_props
+    props.argtypes = [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int)]
+    for fn in (launch, pr1, props):
+        fn.restype = ctypes.c_int
+    return launch, pr1, props
 
 
-def _launch(k, v, c, key_domain, sums, counts) -> None:
-    stream = torch.cuda.current_stream(k.device).cuda_stream
-    err = _kernel()(k.data_ptr(), v.data_ptr(), c.data_ptr(), k.shape[0],
-                    key_domain, sums.data_ptr(), counts.data_ptr(), stream)
+@functools.cache
+def _device_props(index: int, smem_bytes: int) -> DeviceProps:
+    """The card's launch inputs, read once per (device, domain)."""
+    out = (ctypes.c_int * len(DeviceProps._fields))()
+    err = _kernel()[2](index, smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"cuda_dense_sum_count_props failed: CUDA "
+                           f"error {err}")
+    return DeviceProps(*out)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(index: int, n: int, key_domain: int,
+                 path: int | None) -> tuple[int, int, int]:
+    return _plan(n, key_domain, _device_props(index, 8 * key_domain), path)
+
+
+def _launch(k, v, c, key_domain: int, variant: str = "redesign",
+            path: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero a (key_domain, 2) accumulator and launch ``variant`` on it on
+    the current stream; returns (sums, counts) views of it. Operands are
+    checked by the caller; ``variant`` and ``path`` other than the
+    defaults serve chip_smoke.py's comparisons only."""
+    if variant not in _VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+    index = k.get_device()
+    n = k.shape[0]
+    acc = torch.empty((key_domain, 2), dtype=torch.float32, device=k.device)
+    # the raw handle of torch.cuda.current_stream(index), without the
+    # Stream object around it
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    operands = (index, k.data_ptr(), v.data_ptr(), c.data_ptr(), n,
+                key_domain, acc.data_ptr())
+    if variant == "pr1":
+        err = _kernel()[1](*operands, stream)
+    else:
+        _, blocks, smem = _device_plan(index, n, key_domain, path)
+        err = _kernel()[0](*operands, blocks, smem, stream)
     if err != 0:
         raise RuntimeError(f"cuda_dense_sum_count launch failed: CUDA "
                            f"error {err}")
+    if variant == "pr1":
+        return acc.view(2, key_domain).unbind(0)
+    return acc.unbind(1)
 
 
 def cuda_sum_count(k: torch.Tensor, v: torch.Tensor, c: torch.Tensor,
@@ -132,22 +242,21 @@ def cuda_sum_count(k: torch.Tensor, v: torch.Tensor, c: torch.Tensor,
     contract). Returns (sums f32[key_domain], counts f32[key_domain]).
     On a CUDA tensor this launches ``csrc/grouped_agg.cu`` on the
     current stream without synchronising and adds one to
-    ``cuda_sum_count.launches``; on a CPU tensor it runs
-    ``sum_count_reference``.
+    ``cuda_sum_count.launches``; the two results are then strided views
+    (stride 2) of one interleaved (key_domain, 2) accumulator. On a CPU
+    tensor it runs ``sum_count_reference``.
     """
     _validate(k, v, c, key_domain, blk)
-    if k.device.type == "cpu":
-        return sum_count_reference(k, v, c, key_domain)
-    if k.device.type != "cuda":
+    if not k.is_cuda:
+        if k.device.type == "cpu":
+            return sum_count_reference(k, v, c, key_domain)
         raise ValueError(f"cuda_sum_count runs on cuda or cpu tensors, "
                          f"got {k.device}")
-    sums = torch.zeros(key_domain, dtype=torch.float32, device=k.device)
-    counts = torch.zeros(key_domain, dtype=torch.float32, device=k.device)
     if k.shape[0] == 0:
-        return sums, counts
-    _launch(k, v, c, key_domain, sums, counts)
+        return k.new_zeros((key_domain, 2), dtype=torch.float32).unbind(1)
+    out = _launch(k, v, c, key_domain)
     cuda_sum_count.launches += 1
-    return sums, counts
+    return out
 
 
 cuda_sum_count.launches = 0

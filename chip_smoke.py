@@ -7,7 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch, CUDA, nvcc and the card (fails without CUDA);
 2. build every CUDA kernel from ``auron_tpu_torch/kernels/csrc``;
-3. hold each kernel against its plain PyTorch version on the card;
+3. hold each kernel against its plain PyTorch version on the card: the
+   flagship's shapes, Zipf-skewed and sorted keys, a small domain
+   through both the shared-memory and the global path, an operand slice
+   that is not 16-byte aligned, a 6-row tail and a NaN value; both
+   variants of ``grouped_agg._launch`` on each;
 4. drive the flagship q01 stage through ``auron_tpu_torch.entry.entry()``
    at 2^20 and 2^22 rows, with every launch counter set to 0 first, and
    check its output against the sort twin and a float64 numpy oracle;
@@ -15,25 +19,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    stage and its sort twin with CUDA events (5 warm-up runs, median of
    50);
 6. profile the kernel and the stage with torch.profiler: device time by
-   kernel and the share of the wall time the device was busy.
+   kernel and the share of the wall time the device was busy;
+7. compare kernel variants by device time (torch.profiler), in turns
+   (a, b, b, a): the redesign against the first design's kernel
+   (``pr1``) at both sizes with warm
+   and cold L2 (a 64 MB write between launches evicts the operands), on
+   a single group, Zipf-skewed and sorted keys; and the shared-memory
+   path against the global path over a sweep of key domains.
 
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
 store_sales in one batch.
 
-Output: progress lines, then a JSON line of the stage's numbers, the
-``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+Output: progress lines, then a JSON line of the stage's numbers and the
+comparisons, the ``{"kernels": [...]}`` line, the card's name and power
+limit as nvidia-smi prints them, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,6 +59,15 @@ from auron_tpu_torch.kernels import grouped_agg as gagg
 SIZES = (1 << 20, 1 << 22)
 WARMUP, ITERS = 5, 50
 SEED = 0
+#: calls per torch.profiler window of a device-time comparison
+PROFILE_ITERS = 20
+#: a write of this many bytes between launches evicts the 50 MB L2
+FLUSH_BYTES = 64 << 20
+#: the small domain, and the domains of the shared-vs-global sweep
+SMALL_DOMAIN = 1000
+SWEEP_DOMAINS = (2048, 4096, 8192, 16384)
+#: the redesign, then the first design's kernel
+VARIANTS = gagg._VARIANTS
 
 #: per-key tolerance of f32 sums, as a share of the key's sum of |v|:
 #: f32 accumulation (2^-24 relative per add) of ~16-64 terms per key,
@@ -144,17 +166,57 @@ def phase_env() -> str:
     return card
 
 
-def phase_build() -> float:
+def sass_summary(lib: Path) -> dict:
+    """Per kernel of ``lib``: its registers and the atomic and reduction
+    ops of its SASS, from cuobjdump; empty where the toolkit lacks it."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        log(f"{tool} not found: no SASS summary")
+        return {}
+    out, fn = {}, None
+    for line in run([str(tool), "-sass", str(lib)]).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"atomics": set()}
+        m = re.search(r"\b((?:REDG|RED|ATOMG|ATOMS|ATOM)\.[\w.]+)", line)
+        if m and fn:
+            out[fn]["atomics"].add(m.group(1))
+    for line in run([str(tool), "-res-usage", str(lib)]).splitlines():
+        m = re.search(r"Function (\S+?):?$", line.strip())
+        if m:
+            fn = m.group(1)
+        m = re.search(r"REG:(\d+)", line)
+        if m and fn in out:
+            out[fn]["registers"] = int(m.group(1))
+    return {name: {**d, "atomics": sorted(d["atomics"])}
+            for name, d in out.items()}
+
+
+def phase_build() -> tuple[float, dict]:
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"built {[p.name for p in libs]} in {build_s:.2f} s")
-    return build_s
+    sass = {}
+    for lib in libs:
+        sass.update(sass_summary(lib))
+    for name, d in sass.items():
+        log(f"SASS {name}: {json.dumps(d)}")
+    return build_s, sass
+
+
+def zipf_keys(rng, n: int, domain: int, exponent: float = 1.1):
+    """Keys with P(rank r) proportional to r^-exponent over ``domain``
+    keys, the ranks scattered over the domain by a permutation."""
+    p = np.arange(1, domain + 1, dtype=np.float64) ** -exponent
+    ranks = rng.choice(domain, size=n, p=p / p.sum())
+    return rng.permutation(domain)[ranks]
 
 
 def kernel_cases(dev):
-    """The five shapes the kernel is held to: (name, k, v, c,
-    key_domain, exact) with ``exact`` where the sums must be identical."""
+    """The shapes the kernel is held to: (name, k, v, c, key_domain,
+    exact) with ``exact`` where the sums must be identical."""
     rng = np.random.default_rng(1)
     n = SIZES[0]
 
@@ -176,31 +238,94 @@ def kernel_cases(dev):
     full = np.arange(_DOMAIN)
     yield ("full_domain", *tensors(full, full % 97,
                                    np.ones(_DOMAIN, bool)), _DOMAIN, True)
-    oor = rng.integers(0, 1000, n)
+    oor = rng.integers(0, SMALL_DOMAIN, n)
     oor[rng.integers(0, n, 5000)] = rng.choice(
         [-1, 1000, 1500, 3000, 70000], 5000)
     yield ("out_of_range", *tensors(oor, rng.integers(-100, 100, n), valid),
-           1000, True)
+           SMALL_DOMAIN, True)
+    yield ("zipf_1.1", *tensors(zipf_keys(rng, n, _DOMAIN),
+                                rng.normal(size=n), valid), _DOMAIN, False)
+    # a sorted or clustered column: runs of ~16 equal keys
+    yield ("sorted_runs", *tensors(np.sort(keys), rng.integers(-100, 100, n),
+                                   valid), _DOMAIN, True)
+    yield ("small_domain", *tensors(rng.integers(0, SMALL_DOMAIN, n),
+                                    rng.integers(-100, 100, n), valid),
+           SMALL_DOMAIN, True)
+    # a contiguous slice 4 bytes past a 256-byte boundary: scalar loads
+    m = 2049
+    k, v, c = tensors(rng.integers(0, _DOMAIN, m), rng.integers(-9, 9, m),
+                      rng.random(m) > 0.05)
+    yield ("unaligned_slice", k[1:], v[1:], c[1:], _DOMAIN, True)
+    # n % 4 rows only, with an out-of-range key on each side
+    yield ("tail_only_n6", *tensors(np.array([5, 5, 7, 70000, -1, 5]),
+                                    np.arange(1, 7), np.ones(6, bool)),
+           SMALL_DOMAIN, True)
+
+
+def nan_case(dev):
+    """One NaN value, on key 3 of a small domain with integer values."""
+    rng = np.random.default_rng(2)
+    n = 1 << 16
+    k = rng.integers(0, SMALL_DOMAIN, n).astype(np.int32)
+    v = rng.integers(-100, 100, n).astype(np.float32)
+    k[123] = 3
+    v[123] = np.nan
+    return (torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev),
+            torch.ones(n, dtype=torch.float32, device=dev), SMALL_DOMAIN)
+
+
+def launches_of(k, dom: int):
+    """(label, fn) for every way the kernel is held on a case: the
+    wrapper, each variant of ``_launch`` and, where the domain fits
+    shared memory, both paths of the redesign."""
+    out = [("cuda_sum_count", lambda k, v, c: gagg.cuda_sum_count(
+        k, v, c, dom))]
+    for var in VARIANTS:
+        out.append((var, lambda k, v, c, var=var: gagg._launch(
+            k, v, c, dom, var)))
+    if dom <= SWEEP_DOMAINS[-1]:
+        for path in (gagg.PATH_GLOBAL, gagg.PATH_SHARED):
+            out.append((f"path{path}", lambda k, v, c, path=path:
+                        gagg._launch(k, v, c, dom, path=path)))
+    return out
 
 
 def phase_kernel_checks(dev) -> float:
-    """cuda_sum_count against sum_count_reference on the card."""
+    """cuda_sum_count and every variant against sum_count_reference."""
     max_err = 0.0
     for name, k, v, c, dom, exact in kernel_cases(dev):
-        sums, counts = gagg.cuda_sum_count(k, v, c, dom)
         ref_s, ref_c = gagg.sum_count_reference(k, v, c, dom)
-        torch.cuda.synchronize()
-        check(torch.equal(counts, ref_c), f"{name}: counts identical")
-        err = (sums.double() - ref_s.double()).abs()
-        if exact:
-            check(torch.equal(sums, ref_s), f"{name}: sums identical")
-        else:
-            tol = F32_SUM_TOL * abs_sums(k, v, dom)
-            check(bool((err <= tol).all()),
-                  f"{name}: |dsum| <= {F32_SUM_TOL} * sum|v| per key")
-        max_err = max(max_err, float(err.max()))
+        tol = F32_SUM_TOL * abs_sums(k, v, dom)
+        for label, fn in launches_of(k, dom):
+            sums, counts = fn(k, v, c)
+            torch.cuda.synchronize()
+            what = f"{name} via {label}"
+            check(torch.equal(counts, ref_c), f"{what}: counts identical")
+            err = (sums.double() - ref_s.double()).abs()
+            if exact:
+                check(torch.equal(sums, ref_s), f"{what}: sums identical")
+            else:
+                check(bool((err <= tol).all()),
+                      f"{what}: |dsum| <= {F32_SUM_TOL} * sum|v| per key")
+            max_err = max(max_err, float(err.max()))
         log(f"kernel check {name}: rows {k.shape[0]}, key_domain {dom}, "
-            f"max |dsum| {float(err.max()):.3e}: ok")
+            f"{len(launches_of(k, dom))} launches, max |dsum| "
+            f"{float(err.max()):.3e}: ok")
+
+    k, v, c, dom = nan_case(dev)
+    ref_s, ref_c = gagg.sum_count_reference(k, v, c, dom)
+    check(torch.isnan(ref_s).nonzero().flatten().tolist() == [3],
+          "nan: the plain version puts NaN on key 3 only")
+    for label, fn in launches_of(k, dom):
+        sums, counts = fn(k, v, c)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isnan(sums), torch.isnan(ref_s)),
+              f"nan via {label}: NaN on its own key only")
+        rest = ~torch.isnan(ref_s)
+        check(torch.equal(sums[rest], ref_s[rest])
+              and torch.equal(counts, ref_c),
+              f"nan via {label}: every other key identical")
+    log("kernel check nan_value: NaN on key 3 only: ok")
     return max_err
 
 
@@ -372,10 +497,105 @@ def phase_times(dev, stage: dict, rate: float) -> tuple[list, dict]:
     return per_size, {"stages": stage_times, "single_group": single}
 
 
+def kernel_device_ms(fn, flush=None, iters: int = PROFILE_ITERS,
+                     windows: int = 3) -> float:
+    """Mean device ms per call of the dense_sum_count kernels ``fn``
+    launches, from torch.profiler; ``flush`` runs before each call, and
+    its kernels are not counted. A profiler window now and then records
+    no kernel at all; such a window is taken again, up to ``windows``
+    times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "dense_sum_count" in e.key)
+        if total > 0:
+            return total / 1e3 / iters
+        log("a profiler window recorded no dense_sum_count kernel; "
+            "taking it again")
+    raise RuntimeError(f"check failed: the profiler saw no "
+                       f"dense_sum_count kernel in {windows} windows")
+
+
+def in_turns(fns: dict, flush=None) -> dict:
+    """Device ms of each of ``fns``, timed in turns a, b, .., .., b, a:
+    {name: [first turn, second turn]}."""
+    got = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        got[name].append(kernel_device_ms(fns[name], flush))
+    return got
+
+
+def mean_of(turns: dict) -> dict:
+    return {name: statistics.mean(ts) for name, ts in turns.items()}
+
+
+def phase_compare(dev, stage: dict) -> dict:
+    """Kernel variants and launch paths by device time, in turns."""
+    def variants(k, v, c, dom):
+        return {var: (lambda var=var: gagg._launch(k, v, c, dom, var))
+                for var in VARIANTS}
+
+    def paths(k, v, c, dom):
+        return {"shared": lambda: gagg._launch(
+                    k, v, c, dom, path=gagg.PATH_SHARED),
+                "global": lambda: gagg._launch(
+                    k, v, c, dom, path=gagg.PATH_GLOBAL)}
+
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    out = {"flagship": {}, "shapes": {}, "small_domain": {}, "sweep": {},
+           "plan": {}}
+    for n in SIZES:
+        k, v, c = stage_operands(stage["data"][n], dev)
+        out["flagship"][n] = {
+            "warm": in_turns(variants(k, v, c, _DOMAIN)),
+            "cold": in_turns(variants(k, v, c, _DOMAIN), scratch.zero_)}
+        log(f"variants at {n} rows x {_DOMAIN} keys, device ms: "
+            f"{json.dumps(out['flagship'][n])}")
+        small = k % SMALL_DOMAIN
+        out["small_domain"][n] = in_turns(
+            {**paths(small, v, c, SMALL_DOMAIN),
+             "pr1": lambda: gagg._launch(small, v, c, SMALL_DOMAIN, "pr1")})
+        log(f"paths at {n} rows x {SMALL_DOMAIN} keys, device ms: "
+            f"{json.dumps(out['small_domain'][n])}")
+        for dom in SWEEP_DOMAINS:
+            kd = k % dom
+            out["sweep"][f"{n}x{dom}"] = in_turns(paths(kd, v, c, dom))
+            out["plan"][f"{n}x{dom}"] = gagg._device_plan(
+                dev.index or 0, n, dom, None)
+        log(f"path sweep at {n} rows, device ms: "
+            f"{json.dumps({d: out['sweep'][f'{n}x{d}'] for d in SWEEP_DOMAINS})}"
+            f"; _plan's (path, blocks, smem_bytes): "
+            f"{json.dumps({d: out['plan'][f'{n}x{d}'] for d in SWEEP_DOMAINS})}")
+
+    n = SIZES[0]
+    k, v, c = stage_operands(stage["data"][n], dev)
+    rng = np.random.default_rng(3)
+    shapes = {
+        "single_group": torch.full_like(k, 37),
+        "zipf_1.1": torch.from_numpy(zipf_keys(rng, n, _DOMAIN).astype(
+            np.int32)).to(dev),
+        "sorted_runs": torch.sort(k).values}
+    for name, keys in shapes.items():
+        out["shapes"][name] = in_turns(variants(keys, v, c, _DOMAIN))
+        log(f"variants on {name} at {n} rows, device ms: "
+            f"{json.dumps(out['shapes'][name])}")
+    return out
+
+
 def main() -> int:
     card = phase_env()
     dev = torch.device("cuda")
-    build_s = phase_build()
+    build_s, sass = phase_build()
     max_err = phase_kernel_checks(dev)
     launches, stage = phase_stage(dev)
     name = torch.cuda.get_device_name(0)
@@ -384,6 +604,9 @@ def main() -> int:
     prof = phase_profile(dev, stage)
     for row in per_size:
         row["device_ms"] = prof[row["rows"]]["kernel"]["dense_sum_count_ms"]
+    cmp = phase_compare(dev, stage)
+    default = VARIANTS[0]
+    warm = mean_of(cmp["flagship"][SIZES[0]]["warm"])
 
     head = per_size[0]
     kernel = {
@@ -401,10 +624,16 @@ def main() -> int:
         "rows": head["rows"], "key_domain": _DOMAIN,
         "mem_bytes_per_s": rate, "by_rows": per_size,
         "single_group": other["single_group"],
+        "variant_device_ms": warm[default],
+        "pr1_kernel_ms": warm["pr1"],
+        "cold_ms": mean_of(cmp["flagship"][SIZES[0]]["cold"])[default],
+        "single_group_ms": mean_of(
+            cmp["shapes"]["single_group"])[default],
     }
-    print(json.dumps({"build_s": build_s, "stages": other["stages"],
-                      "profile": {str(n): p for n, p in prof.items()},
-                      "card": card}))
+    report = {"build_s": build_s, "stages": other["stages"],
+              "profile": {str(n): p for n, p in prof.items()},
+              "compare": cmp, "sass": sass, "card": card}
+    print(json.dumps(report))
     print(json.dumps({"kernels": [kernel]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -203,3 +203,111 @@ def test_scatter_reduce_unknown_kind():
         tga.scatter_reduce("median", torch.zeros(3, dtype=torch.int32),
                            torch.zeros(3), torch.ones(3, dtype=torch.bool),
                            4, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan and its NaN behaviour, checked on the CPU
+# ---------------------------------------------------------------------------
+
+def _h100(key_domain: int) -> "tga.DeviceProps":
+    """An H100 SXM's launch inputs for one domain, as the kernel's props
+    call reported them on the card: 132 SMs, 227 KB of opt-in shared
+    memory per block, 6 resident 256-thread blocks per SM on the global
+    path (40 registers a thread); on the shared path 1024-thread blocks,
+    at most 2 per SM by their launch bounds and as many as 228 KB of
+    shared memory per SM holds with 1 KB reserved per block (0 where the
+    domain does not fit a block)."""
+    smem = 8 * key_domain
+    occupancy = min(2, 233472 // (smem + 1024)) if smem <= 232448 else 0
+    return tga.DeviceProps(sms=132, smem_optin=232448, global_occupancy=6,
+                           shared_occupancy=occupancy, threads=256,
+                           shared_threads=1024)
+
+
+_G, _S = tga.PATH_GLOBAL, tga.PATH_SHARED
+#: a small made-up card, to show that blocks follow the props given
+_SMALL = tga.DeviceProps(4, 232448, 3, 1, 256, 1024)
+
+
+@pytest.mark.parametrize("n,key_domain,props,want", [
+    # the shared path where every block sees a row per key or more
+    (1 << 20, 1000, None, (_S, 256, 8000)),
+    (1 << 20, 4096, None, (_S, 256, 32768)),
+    (1 << 20, 8192, None, (_G, 792, 0)),
+    (1 << 22, 8192, None, (_S, 264, 65536)),
+    # 128 KB leaves room for one block per SM, so 132 blocks
+    (1 << 20, 16384, None, (_G, 792, 0)),
+    (1 << 22, 16384, None, (_S, 132, 131072)),
+    # 2^16 float2 (512 KB) never fits a block's shared memory
+    (1 << 22, 1 << 16, None, (_G, 792, 0)),
+    # a domain the props say does not fit (occupancy 0)
+    (1 << 22, 1000, _h100(1000)._replace(shared_occupancy=0),
+     (_G, 792, 0)),
+    # blocks follow the given SM count, occupancy and block size
+    (1 << 22, 1 << 16, _SMALL, (_G, 12, 0)),
+    (1 << 22, 1000, _SMALL, (_S, 4, 8000)),
+    (4096, 1 << 16, _SMALL._replace(threads=128), (_G, 8, 0)),
+    (4096, 1, _SMALL._replace(shared_threads=256), (_S, 4, 8)),
+    # tiny inputs: one block, never 0
+    (6, 1000, None, (_G, 1, 0)),
+    (1, 1, None, (_S, 1, 8)),
+    (2048, 1000, None, (_S, 1, 8000)),
+    (2048, 4096, None, (_G, 2, 0)),
+], ids=lambda x: str(x) if not isinstance(x, tuple) else None)
+def test_plan_chooses_path_and_blocks(n, key_domain, props, want):
+    assert tga._plan(n, key_domain, props or _h100(key_domain)) == want
+
+
+@pytest.mark.parametrize("path,key_domain,want", [
+    (_G, 1000, (_G, 792, 0)),
+    (_S, 16384, (_S, 132, 131072)),
+    (_S, 1 << 16, ValueError),
+    (7, 1000, ValueError),
+])
+def test_plan_forced_path(path, key_domain, want):
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            tga._plan(1 << 20, key_domain, _h100(key_domain), path)
+    else:
+        assert tga._plan(1 << 20, key_domain, _h100(key_domain),
+                         path) == want
+
+
+def test_launch_rejects_unknown_variant():
+    k, v, c = _torch(np.zeros(4, np.int32), np.ones(4, np.float32),
+                     np.ones(4, np.float32))
+    with pytest.raises(ValueError, match="unknown variant"):
+        tga._launch(k, v, c, 4, "match_always")
+
+
+def test_nan_value_stays_on_its_key():
+    """One NaN in v, on key 3 of key_domain=1000 (no row holds keys 0-2).
+
+    The port's ``cuda_sum_count`` (its plain version, on CPU tensors) and
+    ``sum_count_reference`` put NaN on key 3 alone, as a float64 oracle,
+    Spark and the reference's sort twin do. The reference's Pallas
+    kernel does not: it returns NaN on all 256 keys of key 3's hi row
+    (keys 0-255), because ``masked(v)`` carries the NaN into the hi
+    one-hot row and the dot with the lo one-hots multiplies it by 0 in
+    every lane (ROADMAP Queue 3). Every key outside that row, and every
+    count, equals the Pallas kernel's."""
+    rng = np.random.default_rng(7)
+    n, dom = 2048, 1000
+    k = rng.integers(4, dom, n).astype(np.int32)
+    v = rng.integers(-100, 100, n).astype(np.float32)
+    c = np.ones(n, np.float32)
+    k[7], v[7] = 3, np.nan
+    o_sum = np.bincount(k, weights=v.astype(np.float64), minlength=dom)
+    o_cnt = np.bincount(k, minlength=dom)
+    ps, pc = (np.asarray(x) for x in jga.pallas_sum_count(
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(c), dom,
+        interpret=True))
+    assert np.flatnonzero(np.isnan(ps)).tolist() == list(range(256))
+    for fn in (tga.cuda_sum_count, tga.sum_count_reference):
+        gs, gc = (x.numpy() for x in fn(*_torch(k, v, c), dom))
+        assert np.flatnonzero(np.isnan(gs)).tolist() == [3]
+        rest = np.arange(dom) != 3
+        np.testing.assert_array_equal(gs[rest], o_sum[rest])
+        np.testing.assert_array_equal(gs[256:], ps[256:])
+        np.testing.assert_array_equal(gc, o_cnt)
+        np.testing.assert_array_equal(gc, pc)
