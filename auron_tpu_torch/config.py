@@ -23,7 +23,7 @@ from typing import Any, Optional
 @dataclass(frozen=True)
 class ConfigOption:
     key: str
-    dtype: type           # int | bool | str
+    dtype: type           # int | float | bool | str
     default: Any
     doc: str
 
@@ -67,6 +67,35 @@ KERNELS_BACKEND = _opt(
     "device and runs its plain PyTorch version elsewhere; 'cuda' forces "
     "the same choice; 'dense' forces the one-hot matmul formulation; "
     "'sort' disables the dense path.")
+# device-resident hash table (hashtable/)
+HASHTABLE_ENABLED = _opt(
+    "auron.hashtable.enabled", bool, True,
+    "Allow the device-resident open-addressing hash table "
+    "(auron_tpu_torch/hashtable) on the general (unbounded-key) "
+    "aggregation path, distinct dedup, and the hash-join candidate "
+    "search; off forces the sort-based formulations everywhere "
+    "(kernels/dispatch.select_hash_agg).")
+HASHTABLE_BACKEND = _opt(
+    "auron.hashtable.backend", str, "auto",
+    "General-agg grouping backend: 'auto' routes aggregations whose "
+    "accumulators are reassociation-exact (integer/decimal sums, "
+    "min/max, first, count) through the hash table and keeps float "
+    "sums on the sort path so results stay bit-identical either way; "
+    "'hash' forces the hash table wherever its kinds are structurally "
+    "supported (float scatter-adds may differ from the sort path in "
+    "the last ulp); 'sort' disables the hash path entirely.")
+HASHTABLE_LOAD_FACTOR = _opt(
+    "auron.hashtable.load_factor", float, 0.5,
+    "Maximum occupancy of the device hash table before a power-of-two "
+    "growth re-bucket (the auron.agg.initial_capacity growth "
+    "discipline). Lower values buy shorter probe chains with more "
+    "device memory.")
+HASHTABLE_MAX_PROBE_ROUNDS = _opt(
+    "auron.hashtable.max_probe_rounds", int, 64,
+    "Probe rounds (double-hashed open addressing) the vectorized "
+    "insert/probe loop runs before declaring overflow; an overflowing "
+    "insert grows the table and retries, and pathological repeat "
+    "overflow falls back to the sort path for the rest of the stream.")
 
 
 class AuronConfig:
@@ -85,6 +114,8 @@ class AuronConfig:
                            f"known: {sorted(_REGISTRY)}")
         if isinstance(value, str) and opt.dtype is not str:
             value = opt.parse(value)
+        if opt.dtype is float and isinstance(value, int):
+            value = float(value)
         if not isinstance(value, opt.dtype):
             raise TypeError(f"{key} expects {opt.dtype.__name__}, "
                             f"got {type(value).__name__}")

@@ -12,6 +12,9 @@ and the device it runs on, pick one of
 - ``dense_matmul``  — the one-hot matmul formulation;
 - ``sort``          — the general sort-based path: the fallback.
 
+On the general (unbounded-key) path, ``select_hash_agg`` picks the
+device hash table (hashtable/) or the sort path.
+
 The reason strings are the reference's, so the same plans take the same
 paths for the same reasons. Every decision is counted in
 kernels/registry.py.
@@ -26,6 +29,7 @@ import torch
 
 from auron_tpu_torch import config as cfg
 from auron_tpu_torch.columnar.schema import DataType
+from auron_tpu_torch.hashtable.core import SUPPORTED_KINDS
 from auron_tpu_torch.kernels import grouped_agg, registry
 
 #: aggregate functions the dense-domain path finalizes
@@ -92,6 +96,93 @@ def record_rows(decision: KernelDecision, rows: int) -> None:
     against the decision's kernel."""
     registry.stats(decision.kernel).add(
         "bytes_moved_est", rows * decision.bytes_per_row)
+
+
+def _count(metrics, name: str, v: int = 1) -> None:
+    if metrics is not None:
+        metrics.counter(name).add(v)
+
+
+@dataclass(frozen=True)
+class HashAggDecision:
+    """The general-path grouping decision: hashtable vs sort."""
+    backend: str             # hashtable | sort
+    reason: str
+    load_factor: float = 0.5
+    max_probe_rounds: int = 64
+
+    @property
+    def is_hash(self) -> bool:
+        return self.backend == "hashtable"
+
+
+#: key column dtypes with a hashtable word encoding in the reference;
+#: nested types (STRUCT/LIST/MAP) stay on the sort path. The port's
+#: hashtable/core.key_meta encodes primitive columns only so far, and
+#: raises for the string and decimal columns a plan could pass here.
+HASH_KEY_DTYPES = frozenset(
+    {DataType.BOOL, DataType.INT8, DataType.INT16, DataType.INT32,
+     DataType.INT64, DataType.FLOAT32, DataType.FLOAT64,
+     DataType.DATE32, DataType.TIMESTAMP_US, DataType.STRING,
+     DataType.DECIMAL})
+
+
+def record_operator_choice(metrics, backend: str) -> None:
+    """Mirror the chosen grouping backend into the operator's metrics
+    (not just the shared kernel counters), so the finalize snapshot
+    shows which backend each operator actually ran."""
+    _count(metrics, f"dispatch_{backend}")
+
+
+def select_hash_agg(*, key_dtypes, acc_kinds, has_float_sum: bool,
+                    conf=None, metrics=None,
+                    record: bool = True) -> HashAggDecision:
+    """The general (unbounded-key) grouping decision: the device hash
+    table (hashtable/) or the sort + segment-reduce path.
+
+    key_dtypes: DataType per group key (nested types fall back).
+    acc_kinds: flat device reduce kinds.
+    has_float_sum: any float-dtype 'sum' accumulator. Scatter-adds
+    reassociate, so 'auto' keeps those on the sort path and only
+    auron.hashtable.backend=hash forces them through the table.
+    ``metrics``: an object with ``counter(name).add(v)``, or None.
+    """
+    conf = conf or cfg.get_config()
+
+    def decide(backend: str, reason: str) -> HashAggDecision:
+        if record:
+            event = "selected" if backend == "hashtable" else "fallback"
+            registry.stats("hashtable").add(event)
+            _count(metrics, f"hashtable_{event}")
+        return HashAggDecision(
+            backend, reason,
+            load_factor=conf.get(cfg.HASHTABLE_LOAD_FACTOR),
+            max_probe_rounds=max(1, conf.get(
+                cfg.HASHTABLE_MAX_PROBE_ROUNDS)))
+
+    if not conf.get(cfg.HASHTABLE_ENABLED):
+        return decide("sort", "disabled")
+    choice = conf.get(cfg.HASHTABLE_BACKEND)
+    if choice == "sort":
+        return decide("sort", "backend_config")
+    if choice not in ("auto", "hash"):
+        raise ValueError(
+            f"auron.hashtable.backend: unknown backend {choice!r} "
+            "(auto|hash|sort)")
+    kds = tuple(key_dtypes)
+    if not kds:
+        return decide("sort", "no_keys")
+    bad = [d for d in kds if d not in HASH_KEY_DTYPES]
+    if bad:
+        return decide("sort", f"key_dtype:{bad[0].value}")
+    for kind in acc_kinds:
+        if kind not in SUPPORTED_KINDS:
+            return decide("sort", f"acc_kind:{kind}")
+    if has_float_sum and choice != "hash":
+        # scatter-add reassociates float sums; 'auto' keeps results
+        # bit-identical to the sort path by falling back
+        return decide("sort", "float_sum_inexact")
+    return decide("hashtable", "eligible")
 
 
 def select_grouped_agg(*, key_domain: Optional[int], key_dtypes,

@@ -122,6 +122,21 @@ DENSE_MATMUL = register(KernelInfo(
     platforms=("*",),
 ))
 
+HASHTABLE = register(KernelInfo(
+    name="hashtable",
+    description=(
+        "Device-resident open-addressing hash table "
+        "(auron_tpu_torch/hashtable): claim-owner probe rounds (one "
+        "scatter-min + gathers per round, compacted tail) in PyTorch ops "
+        "build the group table; accumulators scatter into their slots. "
+        "Unbounded key domains, primitive keys, reassociation-exact "
+        "reduce kinds (sum/min/max/or/first); the general-agg "
+        "replacement for sort + segment-reduce."),
+    reductions=("sum", "count", "min", "max", "or", "first"),
+    max_key_domain=0,            # unbounded
+    platforms=("*",),
+))
+
 SORT_GENERAL = register(KernelInfo(
     name="sort",
     description=(

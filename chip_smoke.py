@@ -27,6 +27,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    a single group, Zipf-skewed and sorted keys; and the shared-memory
    path against the global path over a sweep of key domains.
 
+The general path on the device hash table (``auron_tpu_torch.hashtable``,
+PyTorch ops, no hand-written kernel), run after phase 4:
+
+a. the hash twin ``entry._q01_kernel_hash`` at 2^20 and 2^22 rows,
+   against the float64 oracle and the dense stage's counts, its claim
+   rounds and host syncs per call, and on ``entry()``'s example batch
+   against the same call on the CPU (slot order is deterministic);
+b. a streaming ``HashAggState`` from 4096 slots over 4 batches of 2^20
+   rows with keys uniform over 100,000 values (TPC-DS SF1's
+   ``customer`` table, the range of ``ss_customer_sk``): int64 sum,
+   count, min, max and first held exactly against numpy, and a float64
+   sum that ``auron.hashtable.backend=hash`` forces onto the table; the
+   time, capacity and bytes of each batch, growth included;
+c. ``DeviceHashTable`` insert and probe over 2^20 keys (10% of the probe
+   keys absent) against numpy, and ``build_join_index`` over sorted
+   hashes against ``torch.searchsorted``;
+d. the hash twin timed in phase 5 beside the dense stage and the sort
+   twin, and all three profiled in phase 6: device time by kernel, busy
+   share, device launches per call.
+
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
@@ -51,10 +71,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from auron_tpu_torch.columnar.batch import batch_from_numpy
-from auron_tpu_torch.entry import _DOMAIN, _q01_kernel_sort, entry
-from auron_tpu_torch.kernels import _build
+from auron_tpu_torch import config as cfg
+from auron_tpu_torch.columnar.batch import (PrimitiveColumn, batch_from_numpy,
+                                            batch_to_numpy)
+from auron_tpu_torch.columnar.schema import DataType
+from auron_tpu_torch.entry import (_DOMAIN, _HASH_AGG_CAPACITY,
+                                   _q01_kernel_hash, _q01_kernel_sort, entry)
+from auron_tpu_torch.hashtable import (DeviceHashTable, HashAggState,
+                                       build_join_index)
+from auron_tpu_torch.hashtable import core as htcore
+from auron_tpu_torch.kernels import _build, dispatch
 from auron_tpu_torch.kernels import grouped_agg as gagg
+from auron_tpu_torch.ops import hashing
 
 SIZES = (1 << 20, 1 << 22)
 WARMUP, ITERS = 5, 50
@@ -78,6 +106,18 @@ F64_SUM_TOL = 1e-12
 
 #: peak rates for the bound: f32 adds outside the tensor cores
 F32_OPS_PER_S = 67e12
+
+#: the streaming phase: batches, rows per batch, distinct keys (TPC-DS
+#: SF1's customer table) and the table's first capacity
+STREAM_BATCHES, STREAM_ROWS, STREAM_KEYS = 4, 1 << 20, 100_000
+STREAM_CAPACITY = 4096
+#: 100,000 keys at load factor 0.5 need 2^18 slots: six doublings
+STREAM_DOUBLINGS = 6
+#: int64 sum, count, min, max, first, and a float64 sum
+STREAM_KINDS = ("sum", "sum", "min", "max", "first", "sum")
+I64 = np.iinfo(np.int64)
+#: the build/probe phase: rows, and distinct keys of the join's build side
+TABLE_ROWS, JOIN_KEYS = 1 << 20, 1 << 18
 
 
 def check(ok: bool, what: str) -> None:
@@ -337,10 +377,11 @@ def groups(out) -> dict:
             "counts": gc[gv][order], "avg": ga[gv][order]}
 
 
-def hold_stage(out, host: dict, label: str) -> tuple[dict, np.ndarray,
-                                                     np.ndarray]:
-    """The stage's output against a float64 oracle; returns its groups
-    and the oracle's sums and sum of |v| for the same keys."""
+def hold_stage(out, host: dict, label: str, tol: float = F32_SUM_TOL
+               ) -> tuple[dict, np.ndarray, np.ndarray]:
+    """The stage's output against a float64 oracle, sums within ``tol``
+    of each key's sum of |v|; returns its groups and the oracle's sums
+    and sum of |v| for the same keys."""
     keep = (host["f"] > 10) & host["v_valid"]
     k, v = host["k"][keep], host["v"][keep]
     o_cnt = np.bincount(k, minlength=_DOMAIN)
@@ -353,7 +394,7 @@ def hold_stage(out, host: dict, label: str) -> tuple[dict, np.ndarray,
     check(np.array_equal(dense["counts"], o_cnt[present]),
           f"{label}: counts vs oracle")
     check(bool(np.all(np.abs(dense["sums"] - o_sum[present])
-                      <= F32_SUM_TOL * o_abs[present])),
+                      <= tol * o_abs[present])),
           f"{label}: sums vs float64 oracle")
     return dense, o_sum[present], o_abs[present]
 
@@ -384,8 +425,10 @@ def phase_stage(dev) -> tuple[int, dict]:
     torch.cuda.synchronize()
     launches = gagg.cuda_sum_count.launches
 
+    dense_groups = {}
     for n in SIZES:
         dense, o_sum, o_abs = hold_stage(outs[n], data[n], f"stage {n}")
+        dense_groups[n] = dense
         twin = groups(_q01_kernel_sort(batches[n]))
         check(np.array_equal(twin["keys"], dense["keys"]),
               f"stage {n}: group set vs sort twin")
@@ -399,12 +442,230 @@ def phase_stage(dev) -> tuple[int, dict]:
               f"stage {n}: sort twin vs float64 oracle")
         log(f"stage {n} rows: {dense['keys'].size} groups, matches sort "
             f"twin and oracle")
-    return launches, {"data": data, "batches": batches, "fn": fn}
+    return launches, {"data": data, "batches": batches, "fn": fn,
+                      "dense": dense_groups}
 
 
-def device_profile(fn, iters: int = 20) -> dict:
+def loop_counts() -> tuple[int, int]:
+    """(claim rounds, host syncs) of the hash table's loops so far."""
+    return (htcore.insert_loop.rounds + htcore.probe_loop.rounds,
+            htcore.insert_loop.syncs + htcore.probe_loop.syncs)
+
+
+def phase_hash_twin(dev, stage: dict) -> dict:
+    """a. The hash twin on the card against the float64 oracle and the
+    dense stage's counts; its claim rounds and host syncs per call."""
+    _fn, (example,) = entry()
+    on_card = [t.cpu() for t in _q01_kernel_hash(example)]
+    on_cpu = _q01_kernel_hash(batch_from_numpy(
+        *batch_to_numpy(example), "cpu"))
+    for i in (0, 1, 3):
+        check(torch.equal(on_card[i], on_cpu[i]),
+              "hash twin on the example batch: slot order, keys and counts "
+              "identical on the card and on the CPU")
+    out = {}
+    for n in SIZES:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r0, s0 = loop_counts()
+        res = _q01_kernel_hash(stage["batches"][n])
+        torch.cuda.synchronize()
+        r1, s1 = loop_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(all(t.device.type == "cuda" for t in res),
+              f"hash twin {n}: every output on the card")
+        check(res[1].shape[0] == _HASH_AGG_CAPACITY,
+              f"hash twin {n}: one entry per slot")
+        got, o_sum, o_abs = hold_stage(res, stage["data"][n], f"hash twin {n}",
+                                       F64_SUM_TOL)
+        dense = stage["dense"][n]
+        check(np.array_equal(got["keys"], dense["keys"])
+              and np.array_equal(got["counts"], dense["counts"]),
+              f"hash twin {n}: groups and counts vs the dense stage")
+        out[n] = {"groups": int(got["keys"].size), "claim_rounds": r1 - r0,
+                  "host_syncs": s1 - s0, "peak_bytes": peak,
+                  "max_rel_err": float(np.max(np.abs(got["sums"] - o_sum)
+                                              / np.maximum(o_abs, 1e-300)))}
+        log(f"hash twin {n} rows: {json.dumps(out[n])}: matches oracle "
+            "and dense stage")
+    return out
+
+
+def stream_oracle(k, v, ok, fv) -> dict:
+    """Per key, sorted by key: int64 sum, count, min, max, first and the
+    float64 sum and sum of |v|, from numpy over the rows in order."""
+    order = np.argsort(k, kind="stable")
+    ks = k[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    vo, oko, fvo = v[order], ok[order], fv[order]
+
+    def red(ufunc, a):
+        return ufunc.reduceat(a, starts)
+
+    return {"keys": ks[starts],
+            "sum": red(np.add, np.where(oko, vo, 0)),
+            "count": red(np.add, oko.astype(np.int64)),
+            "min": red(np.minimum, np.where(oko, vo, I64.max)),
+            "max": red(np.maximum, np.where(oko, vo, I64.min)),
+            "first": vo[starts],
+            "fsum": red(np.add, np.where(oko, fvo, 0.0)),
+            "fabs": red(np.add, np.where(oko, np.abs(fvo), 0.0))}
+
+
+def phase_hash_stream(dev) -> dict:
+    """b. HashAggState from 4096 slots over 4 batches: growth, exact
+    integer accumulators, a float64 sum the hash backend forces."""
+    key = (DataType.INT64,)
+    forced = dispatch.select_hash_agg(
+        key_dtypes=key, acc_kinds=STREAM_KINDS, has_float_sum=True,
+        conf=cfg.AuronConfig({cfg.HASHTABLE_BACKEND: "hash"}), record=False)
+    auto = dispatch.select_hash_agg(
+        key_dtypes=key, acc_kinds=STREAM_KINDS, has_float_sum=True,
+        conf=cfg.AuronConfig(), record=False)
+    check(forced.is_hash and auto.reason == "float_sum_inexact",
+          "backend=hash forces the float64 sum onto the table; auto not")
+    state = HashAggState(STREAM_KINDS, initial_capacity=STREAM_CAPACITY,
+                         load_factor=forced.load_factor,
+                         max_probe_rounds=forced.max_probe_rounds)
+    rng = np.random.default_rng(SEED + 10)
+    host = {"k": [], "v": [], "ok": [], "fv": []}
+    batches = []
+    for b in range(STREAM_BATCHES):
+        n = STREAM_ROWS
+        k = rng.integers(0, STREAM_KEYS, n).astype(np.int64)
+        v = rng.integers(-10**6, 10**6, n).astype(np.int64)
+        ok = rng.random(n) > 0.05
+        fv = rng.normal(size=n)
+        for name, a in zip(host, (k, v, ok, fv)):
+            host[name].append(a)
+        kt, vt, okt, fvt = (torch.from_numpy(a).to(dev)
+                            for a in (k, v, ok, fv))
+        contribs = (torch.where(okt, vt, 0), okt.to(torch.int64),
+                    torch.where(okt, vt, I64.max),
+                    torch.where(okt, vt, I64.min), vt,
+                    torch.where(okt, fvt, 0.0))
+        torch.cuda.synchronize()
+        r0, s0 = loop_counts()
+        t0 = time.perf_counter()
+        state.update((PrimitiveColumn(kt, torch.ones_like(okt)),), contribs,
+                     torch.ones_like(okt))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        r1, s1 = loop_counts()
+        batches.append({"batch": b, "ms": ms, "capacity": state.cap,
+                        "groups": state.count, "table_bytes": state.nbytes(),
+                        "claim_rounds": r1 - r0, "host_syncs": s1 - s0})
+        log(f"stream batch {b}: {json.dumps(batches[-1])}")
+    doublings = (state.cap // STREAM_CAPACITY).bit_length() - 1
+    check(doublings >= STREAM_DOUBLINGS,
+          f"stream: the table grew {STREAM_DOUBLINGS} times or more "
+          f"(to {state.cap} slots)")
+
+    cols, accs, ng, cap, h = state.to_sorted_table()
+    ng = int(ng)
+    want = stream_oracle(*(np.concatenate(host[x]) for x in host))
+    check(ng == want["keys"].size == state.count, "stream: group count")
+    hh = h.cpu().numpy()
+    check(np.all(hh[ng:] == htcore.EMPTY)
+          and np.all(np.diff(hh[:ng].view(np.uint64)) > 0),
+          "stream: export sorted by hash as uint64, dead slots last")
+    keys = cols[0].data[:ng].cpu().numpy()
+    order = np.argsort(keys)
+    check(np.array_equal(keys[order], want["keys"]), "stream: group keys")
+    got = {name: a[:ng].cpu().numpy()[order] for name, a in zip(
+        ("sum", "count", "min", "max", "first", "fsum"), accs)}
+    for name in ("sum", "count", "min", "max", "first"):
+        check(np.array_equal(got[name], want[name]),
+              f"stream: int64 {name} identical to numpy")
+    check(bool(np.all(np.abs(got["fsum"] - want["fsum"])
+                      <= F64_SUM_TOL * want["fabs"])),
+          f"stream: float64 sums within {F64_SUM_TOL} * sum|v| per key")
+    log(f"stream: {ng} groups in {cap} slots, every accumulator holds")
+    return {"batches": batches, "groups": ng, "capacity": cap,
+            "doublings": doublings, "table_bytes": state.nbytes(),
+            "rows_per_s": STREAM_BATCHES * STREAM_ROWS
+            / (sum(b["ms"] for b in batches) / 1e3)}
+
+
+def phase_hash_table(dev) -> dict:
+    """c. DeviceHashTable insert/probe against numpy; the join index
+    against torch.searchsorted."""
+    rng = np.random.default_rng(SEED + 20)
+    n = TABLE_ROWS
+    keys = rng.integers(0, 1 << 19, n).astype(np.int64) * 2097143
+    kt = torch.from_numpy(keys).to(dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    col = (PrimitiveColumn(kt, ones),)
+    table = DeviceHashTable(initial_capacity=1 << 21)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot, is_new = table.insert(col, ones)
+    torch.cuda.synchronize()
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    uniq, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    sl = slot.cpu().numpy()
+    check(table.count == uniq.size, "table: one slot per distinct key")
+    check(np.array_equal(np.flatnonzero(is_new.cpu().numpy()),
+                         np.sort(first)), "table: is_new on first rows")
+    check(np.array_equal(sl[first][inv], sl)
+          and np.unique(sl[first]).size == uniq.size,
+          "table: equal keys share a slot, distinct keys do not")
+    stored = table.keys_columns()[0]
+    check(torch.equal(stored.data[slot], kt), "table: stored keys")
+
+    m = n // 10
+    probe = np.concatenate([keys[rng.integers(0, n, n - m)],
+                            -rng.integers(1, 1 << 40, m)])
+    rng.shuffle(probe)
+    pt = torch.from_numpy(probe).to(dev)
+    pcol = (PrimitiveColumn(pt, ones),)
+    r0, s0 = loop_counts()
+    p_slot, found = table.probe(pcol, ones)
+    torch.cuda.synchronize()
+    r1, s1 = loop_counts()
+    fnp = found.cpu().numpy()
+    check(np.array_equal(fnp, np.isin(probe, keys)),
+          "probe: found exactly the inserted keys")
+    check(torch.equal(stored.data[p_slot][found], pt[found]),
+          "probe: each found key's slot holds it")
+    probe_ms = time_ms(lambda: table.probe(pcol, ones))
+
+    jk = torch.from_numpy(rng.integers(0, JOIN_KEYS, n).astype(
+        np.int64)).to(dev)
+    h = hashing.xxhash64_columns([PrimitiveColumn(jk, ones)], n)
+    h_sorted = torch.sort(h).values
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_join_index(h_sorted)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    check(index is not None, "join index built")
+    ph = torch.cat([h[torch.randint(0, n, (n - m,), device=dev)],
+                    torch.randint(-(1 << 62), 1 << 62, (m,), device=dev)])
+    lo, cnt = index.lookup(ph)
+    left = torch.searchsorted(h_sorted, ph)
+    right = torch.searchsorted(h_sorted, ph, right=True)
+    check(torch.equal(cnt.long(), right - left)
+          and torch.equal(lo.long(), torch.where(right > left, left, 0)),
+          "join index: (lo, count) identical to searchsorted")
+    out = {"rows": n, "distinct": int(uniq.size), "capacity": table.cap,
+           "insert_ms": insert_ms, "probe_ms": probe_ms,
+           "probe_claim_rounds": r1 - r0, "probe_host_syncs": s1 - s0,
+           "join_build_ms": build_ms,
+           "join_lookup_ms": time_ms(lambda: index.lookup(ph)),
+           "searchsorted_ms": time_ms(lambda: (
+               torch.searchsorted(h_sorted, ph),
+               torch.searchsorted(h_sorted, ph, right=True)))}
+    log(f"table and join index: {json.dumps(out)}: match numpy and "
+        "searchsorted")
+    return out
+
+
+def device_profile(fn, iters: int = 20, top: int = 8) -> dict:
     """Per call: wall ms, device ms summed over CUDA kernels, the busy
-    share of the device, and the kernels that took the most device time.
+    share of the device, the device kernels and memsets launched, and
+    the kernels that took the most device time.
     The profiler's own cost is inside the wall time. Device numbers are
     None when the profiler saw no CUDA kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -418,16 +679,18 @@ def device_profile(fn, iters: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    by_kernel = {}
+    by_kernel, launched = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) \
                 + e.self_device_time_total / 1e3 / iters
+            launched += e.count
     device_ms = sum(by_kernel.values()) if by_kernel else None
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    most = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": None if device_ms is None else device_ms / wall_ms,
-            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+            "launches_per_call": launched / iters,
+            "top_kernels_ms": [[name[:80], ms] for name, ms in most]}
 
 
 def phase_profile(dev, stage: dict) -> dict:
@@ -440,7 +703,11 @@ def phase_profile(dev, stage: dict) -> dict:
         kern["dense_sum_count_ms"] = mine[0] if mine else None
         batch = stage["batches"][n]
         out[n] = {"kernel": kern,
-                  "stage": device_profile(lambda: stage["fn"](batch))}
+                  "stage": device_profile(lambda: stage["fn"](batch)),
+                  "sort_twin": device_profile(
+                      lambda: _q01_kernel_sort(batch)),
+                  "hash_twin": device_profile(
+                      lambda: _q01_kernel_hash(batch), top=12)}
         log(f"profile at {n} rows: {json.dumps(out[n])}")
     return out
 
@@ -477,10 +744,13 @@ def phase_times(dev, stage: dict, rate: float) -> tuple[list, dict]:
         batch = stage["batches"][n]
         st_ms = time_ms(lambda: stage["fn"](batch))
         sort_ms = time_ms(lambda: _q01_kernel_sort(batch))
+        hash_ms = time_ms(lambda: _q01_kernel_hash(batch))
         stage_times.append({"rows": n, "stage_ms": st_ms,
                             "stage_rows_per_s": n / (st_ms / 1e3),
                             "sort_twin_ms": sort_ms,
-                            "sort_twin_rows_per_s": n / (sort_ms / 1e3)})
+                            "sort_twin_rows_per_s": n / (sort_ms / 1e3),
+                            "hash_twin_ms": hash_ms,
+                            "hash_twin_rows_per_s": n / (hash_ms / 1e3)})
         log(f"stage at {n} rows: {json.dumps(stage_times[-1])}")
 
     n = SIZES[0]
@@ -598,6 +868,9 @@ def main() -> int:
     build_s, sass = phase_build()
     max_err = phase_kernel_checks(dev)
     launches, stage = phase_stage(dev)
+    hash_twin = phase_hash_twin(dev, stage)
+    stream = phase_hash_stream(dev)
+    table = phase_hash_table(dev)
     name = torch.cuda.get_device_name(0)
     rate = mem_bytes_per_s(name)
     per_size, other = phase_times(dev, stage, rate)
@@ -631,6 +904,7 @@ def main() -> int:
             cmp["shapes"]["single_group"])[default],
     }
     report = {"build_s": build_s, "stages": other["stages"],
+              "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "sass": sass, "card": card}
     print(json.dumps(report))

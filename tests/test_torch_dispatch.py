@@ -133,7 +133,9 @@ def test_config_env_binding_and_types(monkeypatch):
     with pytest.raises(TypeError):
         conf.set(tcfg.KERNELS_MAX_KEY_DOMAIN, 1.5)
     with pytest.raises(KeyError):
-        conf.set("auron.hashtable.enabled", True)
+        conf.set("auron.mesh.enabled", True)
+    conf.set(tcfg.HASHTABLE_LOAD_FACTOR, 1)
+    assert conf.get(tcfg.HASHTABLE_LOAD_FACTOR) == 1.0
     # the port's knobs keep the reference's names, types and defaults
     ref = {o.key: (o.dtype, o.default) for o in jcfg.options()}
     for opt in tcfg.options():
@@ -160,5 +162,103 @@ def test_decisions_are_counted():
     assert after["sort"]["bytes_moved_est"] == \
         before["sort"]["bytes_moved_est"] + 1000 * 48
     assert {k.name for k in registry.kernels()} == \
-        {"cuda_dense", "dense_matmul", "sort"}
+        {"cuda_dense", "dense_matmul", "hashtable", "sort"}
     assert registry.lookup("cuda_dense").platforms == ("cuda",)
+
+
+# ---------------------------------------------------------------------------
+# the general path: hashtable vs sort (select_hash_agg)
+# ---------------------------------------------------------------------------
+
+# (id, overrides of the question, knob values): the reference's
+# tests/test_hashtable.py::TestDispatchPolicy cases and their neighbours
+HASH_CASES = [
+    ("eligible", {}, {}),
+    ("disabled", {}, {"auron.hashtable.enabled": False}),
+    ("backend_sort", {}, {"auron.hashtable.backend": "sort"}),
+    ("backend_hash", {}, {"auron.hashtable.backend": "hash"}),
+    ("no_keys", {"key_dtypes": ()}, {}),
+    ("nested_keys", {"key_dtypes": ("STRUCT",)}, {}),
+    ("list_after_int", {"key_dtypes": ("INT64", "LIST")}, {}),
+    ("string_and_decimal_keys", {"key_dtypes": ("STRING", "DECIMAL")}, {}),
+    ("float_and_date_keys", {"key_dtypes": ("FLOAT64", "DATE32")}, {}),
+    ("collect_kind", {"acc_kinds": ("collect_set",)}, {}),
+    ("count_and_first", {"acc_kinds": ("sum", "first", "min", "max")},
+     {}),
+    ("float_sum_auto", {"has_float_sum": True}, {}),
+    ("float_sum_forced", {"has_float_sum": True},
+     {"auron.hashtable.backend": "hash"}),
+    ("float_sum_sort", {"has_float_sum": True},
+     {"auron.hashtable.backend": "sort"}),
+    ("knobs_ride", {}, {"auron.hashtable.load_factor": 0.25,
+                        "auron.hashtable.max_probe_rounds": 17}),
+    ("zero_rounds_clamped", {}, {"auron.hashtable.max_probe_rounds": 0}),
+]
+
+
+def _hash_question(dt, overrides):
+    q = {"key_dtypes": ("INT64",), "acc_kinds": ("sum", "or"),
+         "has_float_sum": False}
+    q.update(overrides)
+    q["key_dtypes"] = tuple(dt[n] for n in q["key_dtypes"])
+    return q
+
+
+@pytest.mark.parametrize("case", HASH_CASES, ids=[c[0] for c in HASH_CASES])
+def test_hash_agg_decision_matches_reference(case):
+    _, overrides, knobs = case
+    want = jdispatch.select_hash_agg(
+        **_hash_question(JDT, overrides), conf=jcfg.AuronConfig(knobs),
+        record=False)
+    got = tdispatch.select_hash_agg(
+        **_hash_question(TDT, overrides), conf=tcfg.AuronConfig(knobs),
+        record=False)
+    assert (got.backend, got.reason, got.is_hash) == \
+        (want.backend, want.reason, want.is_hash)
+    assert (got.load_factor, got.max_probe_rounds) == \
+        (want.load_factor, want.max_probe_rounds)
+
+
+def test_hash_agg_unknown_backend_raises_in_both():
+    q = {"key_dtypes": (), "acc_kinds": (), "has_float_sum": False}
+    for disp, conf in ((jdispatch, jcfg), (tdispatch, tcfg)):
+        c = conf.AuronConfig({"auron.hashtable.backend": "radix"})
+        with pytest.raises(ValueError, match="unknown backend 'radix'"):
+            disp.select_hash_agg(conf=c, **q)
+
+
+class _Metrics:
+    """The operator-metrics shape select_hash_agg writes to."""
+
+    class _Counter:
+        def __init__(self):
+            self.value = 0
+
+        def add(self, v):
+            self.value += v
+
+    def __init__(self):
+        self.counters = {}
+
+    def counter(self, name):
+        return self.counters.setdefault(name, self._Counter())
+
+
+def test_hash_agg_decisions_are_counted():
+    before = registry.snapshot()["hashtable"]
+    m = _Metrics()
+    q = {"key_dtypes": (TDT.INT64,), "acc_kinds": ("sum",)}
+    conf = tcfg.AuronConfig()
+    assert tdispatch.select_hash_agg(has_float_sum=False, conf=conf,
+                                     metrics=m, **q).is_hash
+    assert not tdispatch.select_hash_agg(has_float_sum=True, conf=conf,
+                                         metrics=m, **q).is_hash
+    tdispatch.select_hash_agg(has_float_sum=True, conf=conf, record=False,
+                              metrics=m, **q)
+    tdispatch.record_operator_choice(m, "hashtable")
+    after = registry.snapshot()["hashtable"]
+    assert after["selected"] == before["selected"] + 1
+    assert after["fallback"] == before["fallback"] + 1
+    assert {k: c.value for k, c in m.counters.items()} == {
+        "hashtable_selected": 1, "hashtable_fallback": 1,
+        "dispatch_hashtable": 1}

@@ -148,6 +148,32 @@ def test_sort_twin_matches_reference(shape):
                                        atol=0)
 
 
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s != "full_domain"])
+def test_hash_twin_matches_reference(shape):
+    """Slot order, keys, validity and counts identical; f64 sums and
+    averages within a relative 1e-12 of the key's sum of |v|."""
+    cols, n, _exact = _shape(shape)
+    want = [np.asarray(a) for a in jax.jit(graft._q01_kernel_hash)(
+        _jax_batch(cols, n))]
+    got = [t.numpy() for t in tentry._q01_kernel_hash(
+        tbatch.batch_from_numpy(cols, n, "cpu"))]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    for i in (0, 1, 3):       # keys, group_valid, counts
+        np.testing.assert_array_equal(got[i], want[i])
+    (k, _), (v, vv), (f, _) = cols
+    keep = (np.arange(k.size) < n) & vv & (f > 10)
+    abs_by_key = {}
+    for key, a in zip(k[keep], np.abs(v[keep])):
+        abs_by_key[key] = abs_by_key.get(key, 0.0) + a
+    scale = np.array([abs_by_key.get(key, 0.0) if ok else 0.0
+                      for key, ok in zip(got[0], got[1])])
+    assert np.all(np.abs(got[2] - want[2]) <= F64_REL_TOL * scale)
+    assert np.all(np.abs(got[4] - want[4])
+                  <= F64_REL_TOL * scale / np.maximum(got[3], 1))
+    assert got[1].sum() == len(abs_by_key)
+
+
 def test_entry_on_cpu_matches_reference_example():
     fn, (batch,) = tentry.entry(device="cpu")
     assert fn is tentry._q01_kernel
@@ -234,8 +260,9 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    code = ("import sys, auron_tpu_torch.entry, auron_tpu_torch.kernels."
-            "_build\nbad = sorted(m for m in sys.modules if m.split('.')[0]"
+    code = ("import sys, auron_tpu_torch.entry, auron_tpu_torch.hashtable, "
+            "auron_tpu_torch.kernels._build\nbad = sorted(m for m in "
+            "sys.modules if m.split('.')[0]"
             f" in {_FORBIDDEN!r})\nprint(bad)\nsys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)
