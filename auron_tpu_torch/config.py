@@ -98,6 +98,52 @@ HASHTABLE_MAX_PROBE_ROUNDS = _opt(
     "overflow falls back to the sort path for the rest of the stream.")
 
 
+# batching / shapes
+PARQUET_BATCH_ROWS = _opt(
+    "auron.io.parquet.batch_rows", int, 1 << 16,
+    "Row-group read granularity for the parquet/ORC scans when the plan "
+    "does not pin batch_rows explicitly and auron.scan.batch_rows is 0 "
+    "on a non-CPU platform (legacy knob; auron.scan.batch_rows wins "
+    "when set).")
+SCAN_BATCH_ROWS = _opt(
+    "auron.scan.batch_rows", int, 0,
+    "Rows per file-scan device batch (parquet/ORC). 0 (default) = auto: "
+    "2^17 on the CPU, where larger batches amortize the per-batch host "
+    "glue, and auron.io.parquet.batch_rows (2^16) on a CUDA device. The "
+    "scan clamps the conversion capacity to the partition's actual row "
+    "count bucket, so small files never pad to the full batch size.")
+# aggregation
+AGG_INITIAL_CAPACITY = _opt(
+    "auron.agg.initial_capacity", int, 4096,
+    "Initial group-state capacity of the agg merge kernel; grows by "
+    "power-of-two re-bucketing when exceeded.")
+AGG_PARTIAL_SKIP_ENABLED = _opt(
+    "auron.agg.partial_skip.enabled", bool, True,
+    "Adaptive partial-agg skipping: when the observed group/input "
+    "cardinality ratio stays high, the partial stage stops merging and "
+    "passes rows through in state layout (the reference's "
+    "spark.auron.partialAggSkipping.*, agg_ctx.rs:63-196).")
+AGG_PARTIAL_SKIP_RATIO = _opt(
+    "auron.agg.partial_skip.ratio", float, 0.8,
+    "Cardinality ratio (distinct groups / input rows) at or above which "
+    "the partial agg switches to pass-through.")
+AGG_PARTIAL_SKIP_MIN_ROWS = _opt(
+    "auron.agg.partial_skip.min_rows", int, 1 << 16,
+    "Input rows to observe before the skip decision is made.")
+
+
+def file_scan_batch_rows(conf: "AuronConfig", device) -> int:
+    """File-scan batch sizing: ``auron.scan.batch_rows`` when set; 0
+    resolves per device type: 2^17 on the CPU, else
+    ``auron.io.parquet.batch_rows``."""
+    explicit = int(conf.get(SCAN_BATCH_ROWS))
+    if explicit > 0:
+        return explicit
+    if str(getattr(device, "type", device)) == "cpu":
+        return 1 << 17
+    return conf.get(PARQUET_BATCH_ROWS)
+
+
 class AuronConfig:
     """One resolved configuration: programmatic overrides > env > default."""
 

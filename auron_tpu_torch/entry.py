@@ -1,4 +1,5 @@
-"""Entry point of the port: the flagship q01 query stage.
+"""Entry points of the port: the flagship q01 query stage, and the q01
+operator pipeline.
 
 ``entry(device=None)`` returns ``(fn, (batch,))``: the fused
 filter → group → aggregate step over one columnar batch, and an example
@@ -22,6 +23,22 @@ the differential reference for the dense stage. ``_q01_kernel_hash``
 computes it on the device hash table (hashtable/): claim-owner probe
 rounds build the group table and the sum/count accumulators scatter into
 their slots, with no sort.
+
+``q01_pipeline_plan`` builds the physical plan the reference planner
+builds for ``it.queries.q01_dataframe`` (scan → filter → partial AggOp →
+4-way hash exchange → final AggOp), and ``q01_pipeline`` runs it through
+``runtime.executor.collect_numpy``:
+
+    AggOp[final: 1 keys; sum,count,avg]
+      ShuffleExchangeOp[HashPartitioning 4->4]
+        AggOp[partial: 1 keys; sum,count,avg]
+          FilterOp[1 predicates]
+            ParquetScanOp[4 files]  (or DeviceBatchScanOp)
+
+With ``key_domain=None`` it is the planner's plan, whose AggOps take the
+sort path; an integer bound on the store key is the dense plan, whose
+partial AggOp reaches ``kernels/grouped_agg.cuda_sum_count`` twice per
+batch on a CUDA device (the float sum and the avg).
 """
 
 from __future__ import annotations
@@ -31,6 +48,7 @@ import functools
 import numpy as np
 import torch
 
+from auron_tpu_torch import config as cfg
 from auron_tpu_torch import resolve_device
 from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
                                             batch_from_numpy)
@@ -38,9 +56,17 @@ from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import evaluate
 from auron_tpu_torch.hashtable import grouped_agg_once
+from auron_tpu_torch.io.parquet import DeviceBatchScanOp, ParquetScanOp
+from auron_tpu_torch.it.tpcds_data import fact_file_bounds
 from auron_tpu_torch.kernels import dispatch, registry
 from auron_tpu_torch.kernels import grouped_agg as gagg
 from auron_tpu_torch.ops import hashing
+from auron_tpu_torch.ops.agg import AggOp
+from auron_tpu_torch.ops.project import FilterOp
+from auron_tpu_torch.parallel.exchange import ShuffleExchangeOp
+from auron_tpu_torch.parallel.partitioning import HashPartitioning
+from auron_tpu_torch.runtime.executor import collect_numpy
+from auron_tpu_torch.utils.shapes import bucket_rows
 
 _SCHEMA = Schema((
     Field("k", DataType.INT64),       # group key (customer id class)
@@ -220,3 +246,108 @@ def entry(device=None):
     """Returns (fn, example_args): the flagship step and its inputs, on
     the card unless ``device`` names another."""
     return _q01_kernel, (_example_batch(device=resolve_device(device)),)
+
+
+# ---------------------------------------------------------------------------
+# the q01 operator pipeline
+# ---------------------------------------------------------------------------
+
+#: the store_sales schema of the reference's parquet files
+STORE_SALES_SCHEMA = Schema(tuple(
+    Field(name, DataType.FLOAT64 if name in (
+        "ss_sales_price", "ss_net_profit", "ss_net_paid")
+        else DataType.INT64)
+    for name in ("ss_sold_date_sk", "ss_customer_sk", "ss_item_sk",
+                 "ss_store_sk", "ss_quantity", "ss_sales_price",
+                 "ss_net_profit", "ss_net_paid")))
+
+#: q01 as the reference planner plans it (it/queries.q01_dataframe):
+#: WHERE ss_quantity > 5 GROUP BY ss_store_sk
+#: SELECT sum(ss_sales_price) total, count(ss_net_paid) paid_cnt,
+#:        avg(ss_net_profit) avg_profit
+Q01_PREDICATES = (ir.BinaryExpr(
+    ">", ir.ColumnRef(4, "ss_quantity"), ir.Literal(5, DataType.INT64)),)
+Q01_GROUP = (ir.ColumnRef(3, "ss_store_sk"),)
+Q01_AGGS = (ir.AggFunction("sum", ir.ColumnRef(5, "ss_sales_price")),
+            ir.AggFunction("count", ir.ColumnRef(7, "ss_net_paid")),
+            ir.AggFunction("avg", ir.ColumnRef(6, "ss_net_profit")))
+Q01_GROUP_NAMES = ("ss_store_sk",)
+Q01_AGG_NAMES = ("total", "paid_cnt", "avg_profit")
+
+
+def store_sales_batches(cols: dict, device, partitions: int = 4,
+                        batch_rows: int | None = None,
+                        conf=None) -> list[list[DeviceBatch]]:
+    """The fact columns (``it.tpcds_data.store_sales_columns``) as device
+    batches, one list per partition: cut at the row ranges of the
+    reference's parquet files, file i read by partition i % partitions,
+    each file cut into batches of ``batch_rows`` (default: the file-scan
+    size for ``device``) at the capacity a parquet scan of the same
+    partition would give them."""
+    dev = resolve_device(device)
+    conf = conf or cfg.get_config()
+    rows = batch_rows or cfg.file_scan_batch_rows(conf, dev)
+    names = STORE_SALES_SCHEMA.names
+    n = cols[names[0]][0].shape[0]
+    bounds = fact_file_bounds(n)
+    out: list[list[DeviceBatch]] = [[] for _ in range(partitions)]
+    for p in range(partitions):
+        files = [b for i, b in enumerate(bounds) if i % partitions == p]
+        total = sum(hi - lo for lo, hi in files)
+        cap = min(rows, bucket_rows(total)) if total else rows
+        for lo, hi in files:
+            for s in range(lo, hi, rows):
+                e = min(s + rows, hi)
+                pad = cap - (e - s)
+                out[p].append(batch_from_numpy(
+                    [(np.pad(cols[c][0][s:e], (0, pad)),
+                      np.pad(cols[c][1][s:e], (0, pad))) for c in names],
+                    e - s, dev))
+    return out
+
+
+def q01_pipeline_plan(source, partitions: int = 4,
+                      key_domain: int | None = None, device=None,
+                      conf=None):
+    """The reference planner's physical plan of q01 over ``source``: a
+    list of parquet files (→ ``ParquetScanOp`` on ``device``) or a list
+    of per-partition lists of ``DeviceBatch``es (→ ``DeviceBatchScanOp``
+    on their device). ``key_domain`` set gives the partial AggOp the
+    dense hint."""
+    conf = conf or cfg.get_config()
+    if source and isinstance(source[0], str):
+        dev = resolve_device(device)
+        scan = ParquetScanOp(list(source),
+                             batch_rows=cfg.file_scan_batch_rows(conf, dev),
+                             device=dev)
+        if scan.schema() != STORE_SALES_SCHEMA:
+            raise ValueError(f"not store_sales: {scan.schema()}")
+    else:
+        empty = not any(part for part in source)
+        scan = DeviceBatchScanOp(
+            source, STORE_SALES_SCHEMA,
+            device=resolve_device(device) if empty else None)
+    cap = conf.get(cfg.AGG_INITIAL_CAPACITY)
+    partial = AggOp(FilterOp(scan, list(Q01_PREDICATES)), list(Q01_GROUP),
+                    list(Q01_AGGS), mode="partial",
+                    group_names=list(Q01_GROUP_NAMES),
+                    agg_names=list(Q01_AGG_NAMES), initial_capacity=cap,
+                    key_domain=key_domain)
+    exchange = ShuffleExchangeOp(
+        partial, HashPartitioning((ir.ColumnRef(0),), partitions),
+        input_partitions=partitions)
+    final_aggs = [ir.AggFunction(a.fn) for a in Q01_AGGS]
+    return AggOp(exchange, [ir.ColumnRef(0)], final_aggs, mode="final",
+                 group_names=list(Q01_GROUP_NAMES),
+                 agg_names=list(Q01_AGG_NAMES), initial_capacity=cap)
+
+
+def q01_pipeline(source, partitions: int = 4,
+                 key_domain: int | None = None, device=None, conf=None,
+                 metrics: dict | None = None):
+    """Plan and run q01 over ``source`` (see ``q01_pipeline_plan``):
+    ``{column: (values, validity)}`` in the order the plan emits rows,
+    partition 0 first. Runs on the card unless ``device`` or the
+    source's batches say otherwise."""
+    plan = q01_pipeline_plan(source, partitions, key_domain, device, conf)
+    return collect_numpy(plan, partitions, conf, metrics)

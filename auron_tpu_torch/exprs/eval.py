@@ -19,8 +19,17 @@ from dataclasses import dataclass
 import torch
 
 from auron_tpu_torch.columnar.batch import DeviceBatch, PrimitiveColumn
-from auron_tpu_torch.columnar.schema import DataType, Schema
+from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
+
+
+@dataclass
+class EvalContext:
+    """Ambient scalars available to expressions: the partition. The
+    reference's row offset and common-subexpression memo wait for the
+    nodes that read them."""
+    partition_id: object = 0          # python int or 0-d tensor
+    num_partitions: int = 1
 
 
 @dataclass(frozen=True)
@@ -88,9 +97,10 @@ def _const_column(value, dtype: DataType, capacity: int,
         torch.ones(capacity, dtype=torch.bool, device=device))
 
 
-def evaluate(expr: ir.Expr, batch: DeviceBatch,
-             schema: Schema) -> TypedValue:
-    """Evaluate ``expr`` against ``batch``."""
+def evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
+             ctx: EvalContext | None = None) -> TypedValue:
+    """Evaluate ``expr`` against ``batch``. ``ctx`` carries the ambient
+    scalars; no node of the ported subset reads them yet."""
     cap = batch.capacity
     if isinstance(expr, ir.ColumnRef):
         f = schema[expr.index]
@@ -141,6 +151,16 @@ def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
     if isinstance(expr, (ir.Not, ir.IsNull, ir.IsNotNull)):
         return DataType.BOOL, 0, 0
     raise NotImplementedError(f"infer_dtype for {type(expr).__name__}")
+
+
+def infer_field(expr: ir.Expr, schema: Schema, name: str = "c") -> Field:
+    """Result field of an expression: the input field itself for a
+    column reference (its metadata kept), else a nullable field of the
+    inferred type. Nested results come with the slices that have them."""
+    if isinstance(expr, ir.ColumnRef):
+        return schema[expr.index].with_name(name)
+    dt, p, s = infer_dtype(expr, schema)
+    return Field(name, dt, True, p, s)
 
 
 def _numeric_promote(v: TypedValue, target: DataType) -> TypedValue:

@@ -8,7 +8,7 @@ one package reads the same in the other.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 from auron_tpu_torch.columnar.schema import DataType
 
@@ -69,3 +69,16 @@ class IsNotNull(Expr):
 
     def children(self):
         return (self.child,)
+
+
+@dataclass(frozen=True)
+class AggFunction:
+    """One aggregate: fn in {sum,count,avg,min,max,first,first_ignores_null,
+    count_star, bloom_filter, collect_list, collect_set}; the port's
+    AggOp runs sum, count, count_star, avg, min, max and first."""
+    fn: str
+    arg: Optional[Expr] = None     # None for count(*)
+    distinct: bool = False
+    # bloom_filter sizing; 0 = engine defaults
+    expected_items: int = 0
+    fpp: float = 0.0

@@ -91,11 +91,14 @@ def backend_for_platform(conf=None, platform: Optional[str] = None
         "(auto|cuda|dense|sort)")
 
 
-def record_rows(decision: KernelDecision, rows: int) -> None:
+def record_rows(decision: KernelDecision, rows: int,
+                metrics=None) -> None:
     """Accumulate the bytes-moved estimate for ``rows`` input rows
-    against the decision's kernel."""
-    registry.stats(decision.kernel).add(
-        "bytes_moved_est", rows * decision.bytes_per_row)
+    against the decision's kernel (registry, and the task's metrics when
+    given)."""
+    est = rows * decision.bytes_per_row
+    registry.stats(decision.kernel).add("bytes_moved_est", est)
+    _count(metrics, "bytes_moved_est", est)
 
 
 def _count(metrics, name: str, v: int = 1) -> None:
@@ -187,7 +190,7 @@ def select_hash_agg(*, key_dtypes, acc_kinds, has_float_sum: bool,
 
 def select_grouped_agg(*, key_domain: Optional[int], key_dtypes,
                        agg_fns, value_dtypes, conf=None,
-                       platform: Optional[str] = None,
+                       platform: Optional[str] = None, metrics=None,
                        record: bool = True) -> KernelDecision:
     """The grouped-agg kernel decision.
 
@@ -202,6 +205,8 @@ def select_grouped_agg(*, key_domain: Optional[int], key_dtypes,
         if record:
             registry.stats("sort").add("selected")
             registry.stats("sort").add("fallback")
+            _count(metrics, "sort_selected")
+            _count(metrics, "fallback")
         return KernelDecision("sort", False, reason, BYTES_PER_ROW["sort"])
 
     if not conf.get(cfg.KERNELS_ENABLED):
@@ -232,7 +237,9 @@ def select_grouped_agg(*, key_domain: Optional[int], key_dtypes,
         return fallback("backend_config")
     if record:
         registry.stats(backend).add("selected")
+        _count(metrics, f"{backend}_selected")
         if interpret:
             registry.stats(backend).add("interpret")
+            _count(metrics, "interpret")
     return KernelDecision(backend, interpret, "eligible",
                           BYTES_PER_ROW[backend])

@@ -1,0 +1,929 @@
+"""Grouped aggregation: ``AggOp`` in partial, final and complete modes.
+
+The port of ``auron_tpu.ops.agg`` for primitive keys and values and the
+aggregates sum, count, count_star, avg, min, max and first. Three paths,
+chosen per execution as the reference chooses them:
+
+- **sort** (the general path): per batch, xxhash64 of the keys → stable
+  argsort → segment reduce into a hash-sorted group table; the table
+  folds into a small "hot" state by ``torch.searchsorted`` merge
+  positions and one scatter, and the hot state into "main" once it has
+  grown ``_HOT_FACTOR`` times the batch capacity. Groups come out in
+  hash order (uint64 ascending), as in the reference.
+- **dense** (a ``key_domain`` hint on a partial or complete agg): each
+  batch accumulates straight into [key_domain] arrays. Float sums and
+  averages go through ``kernels/grouped_agg.sum_count`` — on a CUDA
+  device the hand-written kernel ``cuda_sum_count`` — and integer sums,
+  counts and min/max through exact scatters. The hint is verified: a key
+  outside it fails the task with a ValueError.
+- **hash** (``kernels/dispatch.select_hash_agg`` says so): the batch
+  folds into the device hash table (``hashtable.HashAggState``).
+
+Hashes are kept as int64 in uint64 order (``h ^ int64.min``), so sorts
+and binary searches run on int64; dead rows and empty slots carry the
+order's largest value and sort last.
+
+Host syncs: each step that needs a group count on the host — the batch
+reduce, a merge, the dense emit, a hash-table update — reads all its
+control scalars in one ``ops.base.host_readback``. The spill tier, the
+host-side aggregates (bloom filter, UDAF), collect_list/set, DISTINCT,
+and string and decimal columns are not ported: they raise
+``NotImplementedError`` naming the feature.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import torch
+
+from auron_tpu_torch import config as cfg
+from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
+                                            gather_column,
+                                            unify_column_widths)
+from auron_tpu_torch.columnar.schema import DataType, Field, Schema
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.eval import (EvalContext, evaluate, infer_dtype,
+                                        infer_field)
+from auron_tpu_torch.ops import hashing
+from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
+                                      host_readback, timer)
+from auron_tpu_torch.utils.shapes import bucket_rows
+
+# ---------------------------------------------------------------------------
+# accumulator specs
+# ---------------------------------------------------------------------------
+
+_SUM_DTYPE = {
+    DataType.INT8: DataType.INT64, DataType.INT16: DataType.INT64,
+    DataType.INT32: DataType.INT64, DataType.INT64: DataType.INT64,
+    DataType.FLOAT32: DataType.FLOAT64, DataType.FLOAT64: DataType.FLOAT64,
+}
+
+#: value types the ported accumulators take
+_PRIMITIVE = frozenset(_SUM_DTYPE) | {DataType.BOOL, DataType.DATE32,
+                                      DataType.TIMESTAMP_US}
+
+
+@dataclass(frozen=True)
+class AccSpec:
+    """How one aggregate maps to flat state columns.
+
+    state_fields: (name, dtype, reduce_kind) per state column; reduce
+    kinds: sum | min | max | or | first (the value at the first-ordered
+    live row of the group)."""
+    fn: str
+    state_fields: tuple
+    result: tuple  # (dtype, precision, scale)
+
+
+def _unsupported(what: str):
+    return NotImplementedError(
+        f"{what}: not ported; the port's AggOp takes sum, count, "
+        "count_star, avg, min, max and first over primitive columns")
+
+
+def _arg_dtype(agg: ir.AggFunction, in_schema: Schema) -> DataType:
+    dt = infer_dtype(agg.arg, in_schema)[0]
+    if dt not in _PRIMITIVE:
+        raise _unsupported(f"{agg.fn} over {dt.value}")
+    return dt
+
+
+def make_acc_spec(agg: ir.AggFunction, in_schema: Schema,
+                  mode: str) -> AccSpec:
+    fn = agg.fn
+    if agg.distinct:
+        raise _unsupported(f"{fn} DISTINCT")
+    if fn in ("count", "count_star"):
+        return AccSpec(fn, (("count", DataType.INT64, "sum"),),
+                       (DataType.INT64, 0, 0))
+    if fn not in ("sum", "avg", "min", "max", "first",
+                  "first_ignores_null"):
+        raise _unsupported(f"aggregate function {fn}")
+    dt = _arg_dtype(agg, in_schema)
+    if fn == "sum":
+        sdt = _SUM_DTYPE.get(dt)
+        if sdt is None:
+            raise _unsupported(f"sum over {dt.value}")
+        return AccSpec(fn, (("sum", sdt, "sum"), ("has", DataType.BOOL, "or")),
+                       (sdt, 0, 0))
+    if fn == "avg":
+        sdt = _SUM_DTYPE.get(dt)
+        if sdt is None:
+            raise _unsupported(f"avg over {dt.value}")
+        return AccSpec(fn, (("sum", sdt, "sum"),
+                            ("count", DataType.INT64, "sum")),
+                       (DataType.FLOAT64, 0, 0))
+    if fn in ("min", "max"):
+        return AccSpec(fn, (("val", dt, fn), ("has", DataType.BOOL, "or")),
+                       (dt, 0, 0))
+    # first and first_ignores_null share one kind, as in the reference
+    return AccSpec(fn, (("val", dt, "first"), ("has", DataType.BOOL, "or")),
+                   (dt, 0, 0))
+
+
+def make_acc_spec_from_partial(agg: ir.AggFunction, in_schema: Schema,
+                               start_idx: int) -> AccSpec:
+    """Spec for the final side: state dtypes read from the partial
+    schema."""
+    fn = agg.fn
+    if agg.distinct:
+        raise _unsupported(f"{fn} DISTINCT")
+    if fn in ("count", "count_star"):
+        return AccSpec(fn, (("count", DataType.INT64, "sum"),),
+                       (DataType.INT64, 0, 0))
+    f0 = in_schema[start_idx]
+    if f0.dtype not in _PRIMITIVE:
+        raise _unsupported(f"{fn} state of {f0.dtype.value}")
+    if fn == "sum":
+        return AccSpec(fn, (("sum", f0.dtype, "sum"),
+                            ("has", DataType.BOOL, "or")),
+                       (f0.dtype, f0.precision, f0.scale))
+    if fn == "avg":
+        return AccSpec(fn, (("sum", f0.dtype, "sum"),
+                            ("count", DataType.INT64, "sum")),
+                       (DataType.FLOAT64, 0, 0))
+    if fn in ("min", "max"):
+        return AccSpec(fn, (("val", f0.dtype, fn),
+                            ("has", DataType.BOOL, "or")),
+                       (f0.dtype, f0.precision, f0.scale))
+    if fn in ("first", "first_ignores_null"):
+        return AccSpec(fn, (("val", f0.dtype, "first"),
+                            ("has", DataType.BOOL, "or")),
+                       (f0.dtype, f0.precision, f0.scale))
+    raise _unsupported(f"aggregate function {fn}")
+
+
+def _neutral(kind: str, dtype: torch.dtype):
+    """The python neutral element of a reduce kind."""
+    if kind == "sum":
+        return 0
+    if kind in ("min", "max"):
+        if dtype.is_floating_point:
+            return float("inf") if kind == "min" else float("-inf")
+        if dtype == torch.bool:
+            return kind == "min"
+        info = torch.iinfo(dtype)
+        return info.max if kind == "min" else info.min
+    if kind == "or":
+        return False
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# the sort path's reduce and merge steps
+# ---------------------------------------------------------------------------
+
+#: flips the sign bit: int64 order of ``h ^ _SIGN`` is uint64 order of h
+_SIGN = torch.iinfo(torch.int64).min
+#: dead rows and empty slots: the uint64 maximum, in the flipped order
+_HASH_SENTINEL = torch.iinfo(torch.int64).max
+#: slots past a segment reduction's output that take the neutral
+#: contributions of dead rows, spread by row id rather than piled on one
+#: address (same-address atomics serialize on a CUDA device)
+_SPARE_SLOTS = 1024
+
+
+def _keys_equal_prev(sorted_keys, live: torch.Tensor) -> torch.Tensor:
+    """eq[i] = keys[i] == keys[i-1] (null == null, NaN == NaN;
+    eq[0] = False)."""
+    eq = torch.ones_like(live)
+    first = torch.zeros(1, dtype=torch.bool, device=live.device)
+    for col in sorted_keys:
+        eq = eq & torch.cat([first, hashing.adjacent_eq(col)])
+    return eq
+
+
+def _dest(gid: torch.Tensor, live: torch.Tensor, out_cap: int
+          ) -> tuple[torch.Tensor, int]:
+    """Scatter targets of a segment reduction into ``out_cap`` groups:
+    live rows go to their group; dead rows, and groups past ``out_cap``
+    (which the reference's segment ops drop), go to spare slots spread
+    by row id. Returns (dest, spare)."""
+    n = gid.shape[0]
+    spare = max(1, min(n, _SPARE_SLOTS))
+    rid = torch.arange(n, dtype=torch.int64, device=gid.device)
+    ok = live & (gid < out_cap)
+    return torch.where(ok, gid.to(torch.int64), out_cap + rid % spare), spare
+
+
+def _segment(kind: str, vals: torch.Tensor, dest: torch.Tensor,
+             out_cap: int, spare: int) -> torch.Tensor:
+    """Segment reduction of ``vals`` into ``out_cap`` groups; empty
+    groups hold the reduction's identity, as jax.ops.segment_* leave
+    them."""
+    if kind == "sum":
+        return torch.zeros(out_cap + spare, dtype=vals.dtype,
+                           device=vals.device).index_add_(
+            0, dest, vals)[:out_cap]
+    if kind == "or":
+        hits = torch.zeros(out_cap + spare, dtype=torch.int32,
+                           device=vals.device).index_add_(
+            0, dest, vals.to(torch.int32))[:out_cap]
+        return hits > 0
+    if kind in ("min", "max"):
+        if vals.dtype == torch.bool:
+            return _segment(kind, vals.to(torch.int8), dest, out_cap,
+                            spare).bool()
+        ident = _neutral(kind, vals.dtype)
+        return torch.full((out_cap + spare,), ident, dtype=vals.dtype,
+                          device=vals.device).scatter_reduce_(
+            0, dest, vals, "amin" if kind == "min" else "amax",
+            include_self=True)[:out_cap]
+    raise ValueError(kind)
+
+
+def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
+    """Group + reduce rows that are ALREADY sorted by (dead last, hash
+    ascending). Returns (keys, accs, hashes, num_groups); the output
+    stays hash-sorted, the invariant the searchsorted merge relies on."""
+    cap = live_s.shape[0]
+    dev = live_s.device
+    first = torch.zeros(1, dtype=torch.bool, device=dev)
+    same_hash = torch.cat([first, h_s[1:] == h_s[:-1]])
+    same_keys = _keys_equal_prev(keys_s, live_s)
+    boundary = live_s & ~(same_hash & same_keys)
+    gid = (torch.cumsum(boundary, 0, dtype=torch.int32) - 1).clamp(min=0)
+    num_groups = boundary.sum(dtype=torch.int32)
+    dest, spare = _dest(gid, live_s, out_cap)
+
+    # first sorted row of each group: the representative for keys
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    rep = _segment("min", torch.where(live_s, iota, cap), dest, out_cap,
+                   spare).clamp(0, cap - 1).to(torch.int64)
+    out_valid = torch.arange(out_cap, dtype=torch.int32,
+                             device=dev) < num_groups
+    new_keys = tuple(gather_column(c, rep, out_valid) for c in keys_s)
+    h_out = torch.where(out_valid, h_s[rep], _HASH_SENTINEL)
+
+    new_accs = []
+    for kind, acc in zip(kinds, accs_s):
+        if kind == "first":
+            # the value at the first sorted live row of the group
+            new_accs.append(acc[rep])
+            continue
+        masked = torch.where(live_s, acc, _neutral(kind, acc.dtype))
+        new_accs.append(_segment(kind, masked, dest, out_cap, spare))
+    return new_keys, tuple(new_accs), h_out, num_groups
+
+
+def _batch_reduce(keys, accs, live, kinds, cap: int):
+    """(keys, accs, live) of one batch → its own group table,
+    hash-sorted: one stable sort of the BATCH only."""
+    h = hashing.xxhash64_columns(list(keys), cap) ^ _SIGN
+    h = torch.where(live, h, _HASH_SENTINEL)   # dead rows to the end
+    perm = torch.argsort(h, stable=True)
+    ones = torch.ones(cap, dtype=torch.bool, device=live.device)
+    keys_s = tuple(gather_column(c, perm, ones) for c in keys)
+    accs_s = tuple(a[perm] for a in accs)
+    return _reduce_sorted(keys_s, accs_s, live[perm], h[perm], kinds, cap)
+
+
+def _state_merge(kinds, out_cap: int, keys_s, accs_s, h_s, n_s, keys_b,
+                 accs_b, h_b, n_b):
+    """Fold a hash-sorted batch table into the hash-sorted state without
+    re-sorting the state: merge positions from two searchsorted calls,
+    one permutation that interleaves both sides, and the shared reduce
+    folds duplicate groups. State rows go first on hash ties, so
+    ``first`` prefers earlier batches."""
+    cap_s, cap_b = h_s.shape[0], h_b.shape[0]
+    dev = h_s.device
+    live_s = torch.arange(cap_s, dtype=torch.int32, device=dev) < n_s
+    live_b = torch.arange(cap_b, dtype=torch.int32, device=dev) < n_b
+    pos_s = torch.arange(cap_s, device=dev) + torch.searchsorted(h_b, h_s)
+    pos_b = torch.arange(cap_b, device=dev) + torch.searchsorted(
+        h_s, h_b, right=True)
+    m = cap_s + cap_b
+    # the merged order as ONE gather permutation of cat(state, batch)
+    perm = torch.empty(m, dtype=torch.int64, device=dev).scatter_(
+        0, torch.cat([pos_s, pos_b]), torch.arange(m, device=dev))
+
+    def merged(a, b):
+        return torch.cat([a, b])[perm]
+
+    keys_m = tuple(PrimitiveColumn(merged(a.data, b.data),
+                                   merged(a.validity, b.validity))
+                   for a, b in zip(keys_s, keys_b))
+    accs_m = tuple(merged(a, b) for a, b in zip(accs_s, accs_b))
+    return _reduce_sorted(keys_m, accs_m, merged(live_s, live_b),
+                          merged(h_s, h_b), kinds, out_cap)
+
+
+# ---------------------------------------------------------------------------
+# row → state contributions
+# ---------------------------------------------------------------------------
+
+def _state_accs(specs, batch: DeviceBatch, start: int) -> list:
+    """The accumulator columns of a batch in partial-state layout, from
+    column ``start`` on: as they are, a 'has' flag masked by its
+    validity."""
+    accs = []
+    idx = start
+    for spec in specs:
+        for fname, _fdt, _kind in spec.state_fields:
+            col = batch.columns[idx]
+            accs.append(col.data.bool() & col.validity if fname == "has"
+                        else col.data)
+            idx += 1
+    return accs
+
+
+def _contribution_columns(group_exprs, mode: str, aggs, specs,
+                          batch: DeviceBatch, in_schema: Schema,
+                          ectx: EvalContext):
+    """Group keys and per-row initial accumulator columns of a batch."""
+    keys = tuple(evaluate(e, batch, in_schema, ectx).col
+                 for e in group_exprs)
+    live = batch.row_mask()
+    if mode == "final":
+        return keys, _state_accs(specs, batch, len(group_exprs)), live
+    accs = []
+
+    for agg, spec in zip(aggs, specs):
+        if agg.fn in ("count", "count_star"):
+            if agg.arg is None:
+                accs.append(live.to(torch.int64))
+            else:
+                v = evaluate(agg.arg, batch, in_schema, ectx)
+                accs.append((v.validity & live).to(torch.int64))
+            continue
+        v = evaluate(agg.arg, batch, in_schema, ectx)
+        valid = v.validity & live
+        for fname, fdt, kind in spec.state_fields:
+            if fname == "has":
+                accs.append(valid)
+            elif fname == "count":
+                accs.append(valid.to(torch.int64))
+            elif kind == "sum":
+                accs.append(torch.where(valid, v.data, 0).to(
+                    fdt.to_torch()))
+            elif kind in ("min", "max"):
+                accs.append(torch.where(valid, v.data,
+                                        _neutral(kind, v.data.dtype)))
+            elif kind == "first":
+                accs.append(v.data)
+            else:
+                raise ValueError(kind)
+    return keys, accs, live
+
+
+def _passthrough_state_batch(keys, accs, live, num_rows) -> DeviceBatch:
+    """One input batch in partial-state layout without merging: each
+    row is its own group (partial-agg skipping)."""
+    cols = list(keys) + [PrimitiveColumn(a, live) for a in accs]
+    return DeviceBatch(tuple(cols), num_rows)
+
+
+class _HashPathCtl:
+    """Per-execution hash-path control: the dispatch decision's knobs
+    plus the mid-stream fallback latch."""
+
+    __slots__ = ("load_factor", "max_probe_rounds", "metrics", "disabled")
+
+    def __init__(self, decision, metrics):
+        self.load_factor = decision.load_factor
+        self.max_probe_rounds = decision.max_probe_rounds
+        self.metrics = metrics
+        self.disabled = False
+
+
+# ---------------------------------------------------------------------------
+# the operator
+# ---------------------------------------------------------------------------
+
+class AggOp(PhysicalOp):
+    """mode: 'partial' emits (keys..., state...); 'final' consumes state
+    columns; 'complete' does the whole aggregation in one operator."""
+
+    name = "agg"
+
+    #: hot table folds into main once it has grown this many times the
+    #: batch capacity
+    _HOT_FACTOR = 8
+
+    def __init__(self, child: PhysicalOp, group_exprs: list[ir.Expr],
+                 aggs: list[ir.AggFunction], mode: str = "complete",
+                 group_names: Optional[list[str]] = None,
+                 agg_names: Optional[list[str]] = None,
+                 initial_capacity: int = 4096,
+                 key_domain: Optional[int] = None):
+        if mode not in ("partial", "final", "complete"):
+            raise ValueError(f"AggOp mode {mode!r}")
+        self.child = child
+        self.group_exprs = tuple(group_exprs)
+        self.aggs = tuple(aggs)
+        self.mode = mode
+        self.initial_capacity = initial_capacity
+        #: exclusive bound on the (non-negative, non-null) group key, a
+        #: plan-time promise verified at run time
+        self.key_domain = key_domain
+        in_schema = child.schema()
+        if mode == "final":
+            self.specs = []
+            idx = len(group_exprs)
+            for a in aggs:
+                spec = make_acc_spec_from_partial(a, in_schema, idx)
+                self.specs.append(spec)
+                idx += len(spec.state_fields)
+        else:
+            self.specs = [make_acc_spec(a, in_schema, mode) for a in aggs]
+
+        self.group_names = list(group_names or
+                                [f"k{i}" for i in range(len(group_exprs))])
+        self.agg_names = list(agg_names or
+                              [f"a{i}" for i in range(len(aggs))])
+        key_fields = [infer_field(e, in_schema, n)
+                      for e, n in zip(self.group_exprs, self.group_names)]
+        if mode == "partial":
+            state_fields = [Field(f"{an}#{fname}", fdt, True)
+                            for spec, an in zip(self.specs, self.agg_names)
+                            for fname, fdt, _kind in spec.state_fields]
+            self._schema = Schema(tuple(key_fields + state_fields))
+        else:
+            out_fields = [Field(n, spec.result[0], True, spec.result[1],
+                                spec.result[2])
+                          for spec, n in zip(self.specs, self.agg_names)]
+            self._schema = Schema(tuple(key_fields + out_fields))
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def _device_kinds(self) -> list[str]:
+        return [kind for spec in self.specs
+                for (_f, _d, kind) in spec.state_fields]
+
+    # -- sort path: table steps ---------------------------------------------
+
+    def _grow_check(self, ng: int, out_cap: int) -> tuple[bool, int]:
+        """(ok, next capacity): the table fits when the groups do."""
+        ok = ng <= out_cap
+        return ok, (bucket_rows(ng) if ng > out_cap else out_cap)
+
+    def _shrink_table(self, tbl, ng: int):
+        """Slice a group table down to its occupancy bucket (live groups
+        are a hash-sorted prefix)."""
+        keys, accs, n, cap, h = tbl
+        new_cap = max(bucket_rows(max(ng, 1)), self.initial_capacity)
+        if new_cap >= cap:
+            return tbl
+        keys2 = tuple(PrimitiveColumn(c.data[:new_cap],
+                                      c.validity[:new_cap]) for c in keys)
+        accs2 = tuple(a[:new_cap] for a in accs)
+        return (keys2, accs2, n, new_cap, h[:new_cap])
+
+    def _reduce_batch(self, keys, accs, live, elapsed):
+        """One batch → its hash-sorted group table: one readback of the
+        group count, then a slice to its bucket. A batch has no more
+        groups than rows, so its own capacity always fits (the reference
+        retries only for collect kinds, which the port does not take)."""
+        cap_b = live.shape[0]
+        with timer(elapsed):
+            bk, ba, bh, bn = _batch_reduce(tuple(keys), tuple(accs), live,
+                                           self._device_kinds(), cap_b)
+            (ng,) = host_readback([bn])
+        return self._shrink_table((bk, ba, bn, cap_b, bh), ng)
+
+    def _merge_tables(self, s, b, elapsed):
+        """Fold group table ``b`` into group table ``s`` (both
+        hash-sorted), growing the capacity until the groups fit."""
+        kinds = self._device_kinds()
+        s_keys, s_accs, s_n, s_cap, s_h = s
+        bk, ba, bn, _cap_b, bh = b
+        unified = [unify_column_widths([a, c]) for a, c in zip(s_keys, bk)]
+        s_keys = tuple(p[0] for p in unified)
+        bk = tuple(p[1] for p in unified)
+        out_cap = max(s_cap, self.initial_capacity)
+        while True:
+            with timer(elapsed):
+                new_keys, new_accs, h_out, num_groups = _state_merge(
+                    kinds, out_cap, s_keys, s_accs, s_h, s_n, bk, ba, bh,
+                    bn)
+                (ng,) = host_readback([num_groups])
+            ok, out_cap = self._grow_check(ng, out_cap)
+            if ok:
+                return self._shrink_table(
+                    (new_keys, new_accs, num_groups, out_cap, h_out), ng)
+
+    def _merge_sorted(self, state, keys, accs, live, elapsed):
+        """state: None | (main, hot). Every batch merges into the small
+        hot table; the hot table folds into main only once it has grown
+        ``_HOT_FACTOR`` times the batch capacity."""
+        batch_tbl = self._reduce_batch(keys, accs, live, elapsed)
+        cap_b = live.shape[0]
+        main, hot = state if state is not None else (None, None)
+        if hot is None:
+            hot = batch_tbl
+        else:
+            hot = self._merge_tables(hot, batch_tbl, elapsed)
+        if hot[3] >= self._HOT_FACTOR * max(cap_b, self.initial_capacity):
+            main = hot if main is None else self._merge_tables(main, hot,
+                                                               elapsed)
+            hot = None
+        return (main, hot)
+
+    # -- hash path ------------------------------------------------------------
+
+    def _hash_dispatch(self, ctx: ExecContext):
+        """The general-path grouping policy: hashtable vs sort."""
+        from auron_tpu_torch.kernels import dispatch as kdispatch
+        in_schema = self.child.schema()
+        key_dts = tuple(infer_field(e, in_schema, "k").dtype
+                        for e in self.group_exprs)
+        has_float_sum = any(
+            kind == "sum" and fdt in (DataType.FLOAT32, DataType.FLOAT64)
+            for spec in self.specs
+            for (_f, fdt, kind) in spec.state_fields)
+        return kdispatch.select_hash_agg(
+            key_dtypes=key_dts, acc_kinds=tuple(self._device_kinds()),
+            has_float_sum=has_float_sum, conf=ctx.conf,
+            metrics=ctx.metrics_for("kernels"))
+
+    def _state_batch(self, tbl) -> DeviceBatch:
+        """A sorted group table in partial-state layout."""
+        keys, accs, num_groups, cap, _h = tbl
+        valid = torch.arange(cap, dtype=torch.int32,
+                             device=num_groups.device) < num_groups
+        cols = list(keys) + [PrimitiveColumn(a, valid) for a in accs]
+        return DeviceBatch(tuple(cols), num_groups)
+
+    def _state_contributions(self, batch: DeviceBatch):
+        n_keys = len(self.group_exprs)
+        return (tuple(batch.columns[:n_keys]),
+                _state_accs(self.specs, batch, n_keys), batch.row_mask())
+
+    def _merge_hash(self, state, keys, accs, live, elapsed, ht):
+        """Fold the batch into the device hash table. A sorted (tbl, None)
+        state — the partial-skip decision's compaction — re-enters the
+        table as group-partial contributions. Pathological probe overflow
+        latches the sort path for the rest of the stream."""
+        from auron_tpu_torch.hashtable import HashAggState, HashTableOverflow
+        if state is not None and isinstance(state[0], HashAggState):
+            hs = state[0]
+            pending = [(keys, accs, live)]
+        else:
+            hs = HashAggState(
+                self._device_kinds(),
+                initial_capacity=self.initial_capacity,
+                load_factor=ht.load_factor,
+                max_probe_rounds=ht.max_probe_rounds)
+            pending = [self._state_contributions(self._state_batch(lvl))
+                       for lvl in (state or ()) if lvl is not None]
+            pending.append((keys, accs, live))
+        for i, (k2, a2, l2) in enumerate(pending):
+            try:
+                with timer(elapsed):   # update syncs in its readback
+                    hs.update(k2, a2, l2)
+            except HashTableOverflow:
+                ht.disabled = True
+                ht.metrics.counter("hashtable_overflow_fallback").add(1)
+                tbl = hs.to_sorted_table()
+                sorted_state = None if tbl is None else \
+                    (self._shrink_table(self._flip(tbl), hs.count), None)
+                for (k3, a3, l3) in pending[i:]:
+                    sorted_state = self._merge_sorted(
+                        sorted_state, k3, a3, l3, elapsed)
+                return sorted_state
+        return (hs,)
+
+    @staticmethod
+    def _flip(tbl):
+        """The hash table's export (raw hashes, EMPTY last) in this
+        module's order (hashes ^ int64.min, the sentinel last)."""
+        keys, accs, ng, cap, h = tbl
+        return keys, accs, ng, cap, h ^ _SIGN
+
+    def _merge(self, state, keys, accs, live, elapsed, ht=None):
+        if ht is not None and not ht.disabled:
+            return self._merge_hash(state, keys, accs, live, elapsed, ht)
+        return self._merge_sorted(state, keys, accs, live, elapsed)
+
+    def _compact(self, state, elapsed):
+        """Collapse the state into one table for emit or the skip
+        decision; a hash table exports in hash order."""
+        if state is None:
+            return None
+        from auron_tpu_torch.hashtable import HashAggState
+        if isinstance(state[0], HashAggState):
+            hs = state[0]
+            with timer(elapsed):
+                tbl = hs.to_sorted_table()
+            return None if tbl is None else \
+                self._shrink_table(self._flip(tbl), hs.count)
+        main, hot = state
+        if main is None:
+            return hot
+        if hot is None:
+            return main
+        return self._merge_tables(main, hot, elapsed)
+
+    # -- finalize → output batch ---------------------------------------------
+
+    def _emit(self, tbl) -> DeviceBatch:
+        keys, accs, num_groups, cap, _h = tbl
+        valid = torch.arange(cap, dtype=torch.int32,
+                             device=num_groups.device) < num_groups
+        out_cols = list(keys)
+        if self.mode == "partial":
+            out_cols += [PrimitiveColumn(a, valid) for a in accs]
+            return DeviceBatch(tuple(out_cols), num_groups)
+        i = 0
+        for spec in self.specs:
+            n_state = len(spec.state_fields)
+            state_vals = accs[i: i + n_state]
+            i += n_state
+            fn = spec.fn
+            if fn in ("count", "count_star"):
+                out_cols.append(PrimitiveColumn(state_vals[0], valid))
+            elif fn == "avg":
+                s, cnt = state_vals
+                avg = s.to(torch.float64) / cnt.clamp(min=1)
+                out_cols.append(PrimitiveColumn(avg, valid & (cnt > 0)))
+            else:   # sum, min, max, first: the second field is 'has'
+                v, has = state_vals
+                out_cols.append(PrimitiveColumn(v, valid & has))
+        return DeviceBatch(tuple(out_cols), num_groups)
+
+    def _empty_global(self, device) -> DeviceBatch:
+        """A global aggregate over empty input: one row, counts 0 and
+        every other result null."""
+        cols = []
+        for spec in self.specs:
+            dt = spec.result[0].to_torch()
+            is_count = spec.fn in ("count", "count_star")
+            cols.append(PrimitiveColumn(
+                torch.zeros(1, dtype=dt, device=device),
+                torch.full((1,), is_count, dtype=torch.bool, device=device)))
+        return DeviceBatch(tuple(cols), torch.ones((), dtype=torch.int32,
+                                                   device=device))
+
+    # -- dense-domain path ----------------------------------------------------
+
+    def _dense_dispatch(self, ctx: ExecContext, device: torch.device):
+        """The kernel-selection policy for a ``key_domain`` hint: a dense
+        KernelDecision, or None for the general path."""
+        if self.key_domain is None or self.mode not in ("partial",
+                                                        "complete"):
+            return None
+        from auron_tpu_torch.kernels import dispatch as kdispatch
+        in_schema = self.child.schema()
+        key_dts = tuple(infer_dtype(e, in_schema)[0]
+                        for e in self.group_exprs)
+        value_dts = tuple(infer_dtype(a.arg, in_schema)[0]
+                          for a in self.aggs if a.arg is not None)
+        decision = kdispatch.select_grouped_agg(
+            key_domain=self.key_domain, key_dtypes=key_dts,
+            agg_fns=tuple(s.fn for s in self.specs),
+            value_dtypes=value_dts, conf=ctx.conf, platform=device.type,
+            metrics=ctx.metrics_for("kernels"))
+        return decision if decision.is_dense else None
+
+    def _dense_batch_acc(self, agg, spec, batch, k, live, ectx, in_schema,
+                         decision, domain, memo):
+        """One batch's dense [domain] accumulator tuple for one spec;
+        ``memo`` shares one evaluation and one count scatter between
+        aggregates over the same argument."""
+        from auron_tpu_torch.kernels import grouped_agg as gagg
+
+        def counts_for(valid, ckey):
+            cnt = memo.get(ckey)
+            if cnt is None:
+                cnt = gagg.scatter_reduce("count", k, None, valid, domain,
+                                          torch.int64)
+                memo[ckey] = cnt
+            return cnt
+
+        fn = spec.fn
+        if agg.arg is None:   # count_star: live rows per key
+            return (counts_for(live, "rows"),)
+        akey = repr(agg.arg)
+        ev = memo.get(("eval", akey))
+        if ev is None:
+            v = evaluate(agg.arg, batch, in_schema, ectx)
+            ev = (v.col.data, v.validity & live)
+            memo[("eval", akey)] = ev
+        data, valid = ev
+        if fn in ("count", "count_star"):
+            return (counts_for(valid, ("cnt", akey)),)
+        if fn in ("sum", "avg"):
+            sdt = spec.state_fields[0][1].to_torch()
+            if sdt.is_floating_point:
+                # float sums ride the dispatched dense kernel: one launch
+                # yields the (sum, count) pair; per-batch counts are
+                # 0/1-exact in f32, cross-batch accumulation is f64/int64.
+                # The wrapper, not the plan, picks kernel or plain
+                # version, from the device the keys are on.
+                v32 = torch.where(valid, data, 0).to(torch.float32)
+                c32 = valid.to(torch.float32)
+                s, c = gagg.sum_count(k, v32, c32, domain,
+                                      backend=decision.kernel)
+                return (s.to(torch.float64), c.to(torch.int64))
+            s = gagg.scatter_reduce("sum", k, data, valid, domain, sdt)
+            return (s, counts_for(valid, ("cnt", akey)))
+        if fn in ("min", "max"):
+            vdt = spec.state_fields[0][1].to_torch()
+            val = gagg.scatter_reduce(fn, k, data, valid, domain, vdt)
+            return (val, counts_for(valid, ("cnt", akey)))
+        raise NotImplementedError(fn)   # unreachable: dispatch gated
+
+    @staticmethod
+    def _dense_merge(spec, a, b):
+        if spec.fn in ("min", "max"):
+            op = torch.minimum if spec.fn == "min" else torch.maximum
+            return (op(a[0], b[0]), a[1] + b[1])
+        return tuple(x + y for x, y in zip(a, b))
+
+    def _dense_domain_stream(self, partition: int, ctx: ExecContext,
+                             decision, metrics, batches):
+        from auron_tpu_torch.kernels import dispatch as kdispatch
+        from auron_tpu_torch.kernels import grouped_agg as gagg
+        domain = self.key_domain
+        in_schema = self.child.schema()
+        ectx = EvalContext(partition_id=partition)
+        elapsed = metrics.counter("elapsed_compute")
+        kmetrics = ctx.metrics_for("kernels")
+        key_dt = infer_dtype(self.group_exprs[0], in_schema)[0].to_torch()
+
+        state = None    # per-spec dense accumulator tuples
+        rows = None     # int64[domain] live rows per key (group existence)
+        max_k = min_k = saw_null = None   # bound-check scalars (device)
+        total_rows = None   # device scalar: read back at emit
+
+        for batch in batches:
+            ctx.check_cancelled()
+            with timer(elapsed, ctx.device_sync) as t:
+                live = batch.row_mask()
+                kv = evaluate(self.group_exprs[0], batch, in_schema, ectx)
+                kdata = kv.col.data.to(torch.int64)
+                key_live = live & kv.validity
+                b_null = (live & ~kv.validity).any()
+                b_max = torch.where(key_live, kdata, -1).max()
+                b_min = torch.where(key_live, kdata, 0).min()
+                k = kdata.clamp(0, domain - 1).to(torch.int32)
+                memo = {"rows": gagg.scatter_reduce(
+                    "count", k, None, live, domain, torch.int64)}
+                batch_accs = [
+                    self._dense_batch_acc(agg, spec, batch, k, live, ectx,
+                                          in_schema, decision, domain, memo)
+                    for agg, spec in zip(self.aggs, self.specs)]
+                n_b = batch.num_rows.to(torch.int64)
+                if state is None:
+                    state, rows = batch_accs, memo["rows"]
+                    max_k, min_k, saw_null = b_max, b_min, b_null
+                    total_rows = n_b
+                else:
+                    state = [self._dense_merge(spec, s, b)
+                             for spec, s, b in zip(self.specs, state,
+                                                   batch_accs)]
+                    rows = rows + memo["rows"]
+                    max_k = torch.maximum(max_k, b_max)
+                    min_k = torch.minimum(min_k, b_min)
+                    saw_null = saw_null | b_null
+                    total_rows = total_rows + n_b
+                t.track(rows)
+        if state is None:
+            return
+
+        touched = rows > 0
+        ng_dev = touched.sum(dtype=torch.int32)
+        order = torch.argsort(~touched, stable=True)   # touched keys first
+        # ONE readback for every control scalar
+        ng, mx, mn, nulls, nrows = host_readback(
+            [ng_dev, max_k, min_k, saw_null, total_rows])
+        kdispatch.record_rows(decision, nrows, kmetrics)
+        # the key_domain hint is a plan-time promise: a violation fails
+        # the task rather than mis-aggregating
+        if nulls:
+            raise ValueError(
+                "dense grouped-agg: NULL group keys under key_domain="
+                f"{domain}; the planner's bound is invalid for this data")
+        if mx >= domain or mn < 0:
+            raise ValueError(
+                f"dense grouped-agg: observed key range [{mn}, {mx}] "
+                f"violates the planner's key_domain={domain}")
+        cap = max(bucket_rows(max(ng, 1)), 16)
+        take = order
+        if cap > domain:
+            take = torch.cat([order, order.new_zeros(cap - domain)])
+        take = take[:cap]
+        dev = rows.device
+        out_valid = torch.arange(cap, dtype=torch.int32, device=dev) < ng_dev
+        keys = (PrimitiveColumn(
+            torch.arange(domain, dtype=key_dt, device=dev)[take],
+            out_valid),)
+        accs = []
+        for spec, acc in zip(self.specs, state):
+            fn = spec.fn
+            if fn in ("count", "count_star"):
+                accs.append(acc[0][take])
+            elif fn == "avg":
+                accs.append(acc[0][take].to(
+                    spec.state_fields[0][1].to_torch()))
+                accs.append(acc[1][take])
+            else:   # sum / min / max: the second state field is 'has'
+                accs.append(acc[0][take].to(
+                    spec.state_fields[0][1].to_torch()))
+                accs.append(acc[1][take] > 0)
+        tbl = (keys, tuple(accs), ng_dev, cap,
+               torch.zeros(cap, dtype=torch.int64, device=dev))
+        yield self._emit(tbl)
+
+    # -- execute --------------------------------------------------------------
+
+    def execute(self, partition: int,
+                ctx: ExecContext) -> Iterator[DeviceBatch]:
+        from auron_tpu_torch.kernels import dispatch as kdispatch
+        if ctx.mem_manager is not None:
+            raise NotImplementedError(
+                "AggOp with a memory manager: the spill tier is not "
+                "ported")
+        metrics = ctx.metrics_for(self)
+        in_schema = self.child.schema()
+        conf = ctx.conf
+        skip_enabled = (self.mode == "partial" and bool(self.group_exprs)
+                        and conf.get(cfg.AGG_PARTIAL_SKIP_ENABLED))
+        skip_ratio = conf.get(cfg.AGG_PARTIAL_SKIP_RATIO)
+        skip_min_rows = conf.get(cfg.AGG_PARTIAL_SKIP_MIN_ROWS)
+
+        device = self._plan_device()
+        decision = self._dense_dispatch(ctx, device)
+        if decision is not None:
+            # the chosen backend lands in THIS operator's metrics
+            kdispatch.record_operator_choice(metrics, decision.kernel)
+            return count_output(self._dense_domain_stream(
+                partition, ctx, decision, metrics,
+                self.child.execute(partition, ctx)), metrics)
+        ht_decision = self._hash_dispatch(ctx)
+        ht_ctl = _HashPathCtl(ht_decision, metrics) \
+            if ht_decision.is_hash else None
+        kdispatch.record_operator_choice(
+            metrics, "hashtable" if ht_ctl is not None else "sort")
+        return count_output(self._general_stream(
+            self.child.execute(partition, ctx), ctx, metrics, in_schema,
+            ht_ctl, partition, skip_enabled, skip_ratio, skip_min_rows,
+            device), metrics)
+
+    def _plan_device(self) -> torch.device:
+        """The device the plan runs on: its leftmost scan's."""
+        op = self
+        while op.children:
+            op = op.children[0]
+        return torch.device(getattr(op, "device", "cpu"))
+
+    def _general_stream(self, batches, ctx, metrics, in_schema, ht_ctl,
+                        partition, skip_enabled, skip_ratio, skip_min_rows,
+                        device):
+        elapsed = metrics.counter("elapsed_compute")
+        ectx = EvalContext(partition_id=partition)
+        state = None
+        skipping = False
+        rows_seen = 0
+        skip_pending = skip_enabled
+        skipped_rows = metrics.counter("partial_agg_skipped_rows")
+        for batch in batches:
+            ctx.check_cancelled()
+            keys, accs, live = _contribution_columns(
+                self.group_exprs, self.mode, self.aggs, self.specs, batch,
+                in_schema, ectx)
+            if skipping:
+                skipped_rows.add(batch.num_rows)
+                yield _passthrough_state_batch(keys, accs, live,
+                                               batch.num_rows)
+                continue
+            state = self._merge(state, keys, accs, live, elapsed, ht_ctl)
+            if not skip_pending:
+                continue
+            # decide ONCE when min_rows is crossed, then latch either way
+            (n,) = host_readback([batch.num_rows])
+            rows_seen += n
+            if rows_seen < skip_min_rows:
+                continue
+            skip_pending = False
+            # an exact distinct count needs the levels folded
+            tbl = self._compact(state, elapsed)
+            state = None if tbl is None else (tbl, None)
+            ng = 0 if tbl is None else host_readback([tbl[2]])[0]
+            if tbl is not None and ng >= skip_ratio * rows_seen:
+                yield self._emit(tbl)
+                state = None
+                skipping = True
+        if skipping:
+            return
+        final_tbl = self._compact(state, elapsed)
+        if final_tbl is None:
+            if not self.group_exprs and self.mode in ("final", "complete"):
+                # global agg over empty input: one row of neutral results
+                yield self._empty_global(device)
+            return
+        yield self._emit(final_tbl)
+
+    def __repr__(self):
+        fns = ",".join(a.fn for a in self.aggs)
+        return f"AggOp[{self.mode}: {len(self.group_exprs)} keys; {fns}]"
+
+

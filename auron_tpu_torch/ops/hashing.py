@@ -1,14 +1,18 @@
-"""Spark-compatible xxhash64 on primitive columns.
+"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive columns.
 
-The port of the xxhash64 half of ``auron_tpu.ops.hashing``, bit-identical
-to it (and so to Spark's XxHash64): every value contributes the hash of
-its little-endian bytes, multi-column hashes chain the running hash
-through the seed, and NULL leaves the running hash unchanged.
+The port of ``auron_tpu.ops.hashing``'s primitive arms, bit-identical
+to it (and so to Spark's XxHash64 and Murmur3_x86_32): every value
+contributes the hash of its little-endian bytes, multi-column hashes
+chain the running hash through the seed, and NULL leaves the running
+hash unchanged. murmur3 with seed 42 places rows in a hash shuffle.
 
-PyTorch has no unsigned 64-bit shifts or adds, so the arithmetic runs in
+PyTorch has no unsigned 64-bit shifts or adds, so xxhash64 runs in
 int64: ``+`` and ``*`` wrap mod 2^64 exactly as uint64 does, the primes
 are written as their signed equivalents, and a logical right shift is
-the arithmetic shift masked down to its low ``64 - r`` bits.
+the arithmetic shift masked down to its low ``64 - r`` bits. murmur3's
+uint32 words live in int64 lanes as values in [0, 2^32): a product
+wraps mod 2^64, whose low 32 bits are the uint32 product, and every
+step masks with ``& 0xFFFFFFFF``.
 """
 
 from __future__ import annotations
@@ -85,6 +89,148 @@ def canonicalize_float(d: torch.Tensor) -> torch.Tensor:
     v = torch.where(d.abs() < torch.finfo(d.dtype).tiny, 0.0, d)
     return torch.where(d != d, torch.nan, v)
 
+
+def nan_aware_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise key equality with Spark semantics: NaN == NaN (floats
+    only); -0.0 == 0.0 already holds under IEEE ==."""
+    same = a == b
+    if a.dtype.is_floating_point:
+        same = same | ((a != a) & (b != b))
+    return same
+
+
+def adjacent_eq(col: PrimitiveColumn) -> torch.Tensor:
+    """bool[cap-1]: row i equals row i-1 under Spark key semantics —
+    null == null, NaN == NaN."""
+    if not isinstance(col, PrimitiveColumn):
+        raise NotImplementedError(
+            f"grouping on {type(col).__name__} keys: the port groups "
+            "primitive columns only")
+    both_valid = col.validity[1:] & col.validity[:-1]
+    both_null = ~col.validity[1:] & ~col.validity[:-1]
+    same = nan_aware_eq(col.data[1:], col.data[:-1])
+    return (both_valid & same) | both_null
+
+
+# ---------------------------------------------------------------------------
+# murmur3_x86_32
+# ---------------------------------------------------------------------------
+
+SPARK_SHUFFLE_SEED = 42
+
+_M32 = 0xFFFFFFFF
+_M3_C1 = 0xCC9E2D51
+_M3_C2 = 0x1B873593
+_M3_MIX = 0xE6546B64
+
+
+def _u32(x) -> torch.Tensor:
+    """The uint32 bits of an int tensor (or int) as int64 in [0, 2^32)."""
+    if not isinstance(x, torch.Tensor):
+        return x & _M32
+    return x.to(torch.int64) & _M32
+
+
+def _s32(h: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 → the int32 with the same bits."""
+    return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
+
+
+def _rotl32(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _mix_k1(k1):
+    k1 = (k1 * _M3_C1) & _M32
+    k1 = _rotl32(k1, 15)
+    return (k1 * _M3_C2) & _M32
+
+
+def _mix_h1(h1, k1):
+    h1 = h1 ^ k1
+    h1 = _rotl32(h1, 13)
+    return (h1 * 5 + _M3_MIX) & _M32
+
+
+def _fmix(h1, length: int):
+    h1 = h1 ^ length
+    h1 = h1 ^ (h1 >> 16)
+    h1 = (h1 * 0x85EBCA6B) & _M32
+    h1 = h1 ^ (h1 >> 13)
+    h1 = (h1 * 0xC2B2AE35) & _M32
+    return h1 ^ (h1 >> 16)
+
+
+def murmur3_int32(values: torch.Tensor, seed) -> torch.Tensor:
+    """murmur3 of a 4-byte LE value (int8/16 widen to int32 first, as in
+    Spark). values: int32[n]; seed: int32[n] or an int → int32[n]."""
+    h1 = _mix_h1(_u32(seed), _mix_k1(_u32(values.to(torch.int32))))
+    return _s32(_fmix(h1, 4))
+
+
+def murmur3_u32_pair(low: torch.Tensor, high: torch.Tensor,
+                     seed) -> torch.Tensor:
+    """murmur3 of an 8-byte LE value given as (low, high) 32-bit words
+    (uint32 values in int64 lanes)."""
+    h1 = _mix_h1(_u32(seed), _mix_k1(low))
+    h1 = _mix_h1(h1, _mix_k1(high))
+    return _s32(_fmix(h1, 8))
+
+
+def murmur3_int64(values: torch.Tensor, seed) -> torch.Tensor:
+    """murmur3 of an 8-byte LE value: low word then high word."""
+    v = values.to(torch.int64)
+    return murmur3_u32_pair(v & _M32, (v >> 32) & _M32, seed)
+
+
+def _f64_bits(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonicalized bits of f64 as (low, high) 32-bit words."""
+    v = canonicalize_float(d).view(torch.int64)
+    return v & _M32, (v >> 32) & _M32
+
+
+def _hash_column_murmur(col: PrimitiveColumn,
+                        hashes: torch.Tensor) -> torch.Tensor:
+    """One column's contribution to the running murmur3 hash (int32[n])."""
+    if not isinstance(col, PrimitiveColumn):
+        raise NotImplementedError(
+            f"murmur3 of {type(col).__name__}: the port hashes primitive "
+            "columns only")
+    d = col.data
+    if d.dtype in (torch.bool, torch.int8, torch.int16, torch.int32):
+        new = murmur3_int32(d.to(torch.int32), hashes)
+    elif d.dtype == torch.int64:
+        new = murmur3_int64(d, hashes)
+    elif d.dtype == torch.float32:
+        # Java floatToIntBits: -0.0 -> 0.0, NaN payloads canonicalized
+        new = murmur3_int32(canonicalize_float(d).view(torch.int32), hashes)
+    elif d.dtype == torch.float64:
+        lo, hi = _f64_bits(d)
+        new = murmur3_u32_pair(lo, hi, hashes)
+    else:
+        raise NotImplementedError(f"murmur3 for {d.dtype}")
+    return torch.where(col.validity, new, hashes)
+
+
+def murmur3_columns(cols: list[PrimitiveColumn], capacity: int,
+                    seed: int = SPARK_SHUFFLE_SEED) -> torch.Tensor:
+    """Spark create_hashes: running int32 hash chained across columns."""
+    hashes = torch.full((capacity,), seed, dtype=torch.int32,
+                        device=cols[0].data.device)
+    for col in cols:
+        hashes = _hash_column_murmur(col, hashes)
+    return hashes
+
+
+def murmur3_batch(batch, key_indices: list[int],
+                  seed: int = SPARK_SHUFFLE_SEED) -> torch.Tensor:
+    return murmur3_columns([batch.columns[i] for i in key_indices],
+                           batch.capacity, seed)
+
+
+# ---------------------------------------------------------------------------
+# xxhash64
+# ---------------------------------------------------------------------------
 
 def _hash_column_xxhash(col: PrimitiveColumn,
                         hashes: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    50);
 6. profile the kernel and the stage with torch.profiler: device time by
    kernel and the share of the wall time the device was busy;
-7. compare kernel variants by device time (torch.profiler), in turns
+7. compare kernel variants by device time (torch.profiler, or CUDA
+   events where 5 profiler windows in a row record no kernel), in turns
    (a, b, b, a): the redesign against the first design's kernel
    (``pr1``) at both sizes with warm
    and cold L2 (a 64 MB write between launches evicts the operands), on
@@ -47,6 +48,30 @@ d. the hash twin timed in phase 5 beside the dense stage and the sort
    twin, and all three profiled in phase 6: device time by kernel, busy
    share, device launches per call.
 
+The q01 operator pipeline (``auron_tpu_torch.entry.q01_pipeline``:
+parquet or device scan → filter → partial AggOp → 4-way hash exchange →
+final AggOp → collect), run after phase c:
+
+p. TPC-DS SF10's store_sales, made on the machine by
+   ``it.tpcds_data.store_sales_columns(240, --seed)``: 28,800,000 rows,
+   8 int64/float64 columns, 2,880 stores, cut at the reference's 4 file
+   ranges into 2^16-row device batches (4 partitions of 110 batches).
+   Two plans over ``DeviceBatchScanOp``: (a) the reference planner's,
+   on the sort path, and (b) the dense plan with ``key_domain =
+   bucket_rows(2880)``, whose partial AggOp launches
+   ``cuda_dense_sum_count`` twice per batch. Each is checked against
+   the numpy oracle (keys and counts identical; float sums and means
+   within 1e-12 (a) or 1e-5 (b) of the store's sum of |v|), for the
+   operators' recorded path, and for ``cuda_sum_count.launches`` rising
+   by exactly the count the plan implies (0 for (a)); plan (a) on the
+   card gives the CPU's key order and counts at scale 1. Then each is
+   timed (median of 5 queries after a warm-up), profiled once
+   (torch.profiler: busy share, device launches, top items), and its
+   host syncs counted (``ops.base.host_readback.syncs``, and PyTorch's
+   sync debug mode's warnings). Where pyarrow imports, the 4 files are
+   written under the checkout and plan (a) runs through
+   ``ParquetScanOp`` too; where it does not, a line says so.
+
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
@@ -60,12 +85,16 @@ limit as nvidia-smi prints them, and last ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -83,12 +112,19 @@ from auron_tpu_torch.hashtable import core as htcore
 from auron_tpu_torch.kernels import _build, dispatch
 from auron_tpu_torch.kernels import grouped_agg as gagg
 from auron_tpu_torch.ops import hashing
+from auron_tpu_torch.ops.base import host_readback
 
 SIZES = (1 << 20, 1 << 22)
 WARMUP, ITERS = 5, 50
 SEED = 0
-#: calls per torch.profiler window of a device-time comparison
-PROFILE_ITERS = 20
+#: calls per torch.profiler window of a device-time comparison, and the
+#: windows taken before CUDA events time the calls instead
+PROFILE_ITERS, PROFILE_WINDOWS = 20, 5
+#: device-time comparisons the profiler missed: windows that recorded no
+#: kernel, and calls that CUDA events timed
+EVENT_TIMED = {"missed_windows": 0, "calls": 0}
+#: clock cycles of the spin kernel ahead of an event-timed call (~0.5 ms)
+SPIN_CYCLES = 1_000_000
 #: a write of this many bytes between launches evicts the 50 MB L2
 FLUSH_BYTES = 64 << 20
 #: the small domain, and the domains of the shared-vs-global sweep
@@ -118,6 +154,13 @@ STREAM_KINDS = ("sum", "sum", "min", "max", "first", "sum")
 I64 = np.iinfo(np.int64)
 #: the build/probe phase: rows, and distinct keys of the join's build side
 TABLE_ROWS, JOIN_KEYS = 1 << 20, 1 << 18
+#: the pipeline phase: scale 240 is 28,800,000 store_sales rows (TPC-DS
+#: SF10 has 28,800,991), in 4 partitions; the row-order check's scale
+PIPE_SCALE, PIPE_PARTITIONS, PIPE_ORDER_SCALE = 240, 4, 1
+#: timed queries per plan, after one warm-up
+PIPE_RUNS = 5
+#: the directory of the repo, under which the parquet run writes its files
+ROOT = Path(__file__).resolve().parent
 
 
 def check(ok: bool, what: str) -> None:
@@ -662,18 +705,23 @@ def phase_hash_table(dev) -> dict:
     return out
 
 
-def device_profile(fn, iters: int = 20, top: int = 8) -> dict:
+def device_profile(fn, iters: int = 20, top: int = 8,
+                   host_ops: bool = True) -> dict:
     """Per call: wall ms, device ms summed over CUDA kernels, the busy
     share of the device, the device kernels and memsets launched, and
     the kernels that took the most device time.
     The profiler's own cost is inside the wall time. Device numbers are
-    None when the profiler saw no CUDA kernel."""
+    None when the profiler saw no CUDA kernel. ``host_ops=False`` leaves
+    the host's operators out of the trace, which keeps a trace of
+    ~10^5 launches cheap to record and to read."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -768,12 +816,13 @@ def phase_times(dev, stage: dict, rate: float) -> tuple[list, dict]:
 
 
 def kernel_device_ms(fn, flush=None, iters: int = PROFILE_ITERS,
-                     windows: int = 3) -> float:
+                     windows: int = PROFILE_WINDOWS) -> float:
     """Mean device ms per call of the dense_sum_count kernels ``fn``
     launches, from torch.profiler; ``flush`` runs before each call, and
     its kernels are not counted. A profiler window now and then records
     no kernel at all; such a window is taken again, up to ``windows``
-    times in all."""
+    times in all, and after that the calls are timed with CUDA events
+    (``event_ms``) and counted in ``EVENT_TIMED``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -790,10 +839,33 @@ def kernel_device_ms(fn, flush=None, iters: int = PROFILE_ITERS,
                     and "dense_sum_count" in e.key)
         if total > 0:
             return total / 1e3 / iters
+        EVENT_TIMED["missed_windows"] += 1
         log("a profiler window recorded no dense_sum_count kernel; "
             "taking it again")
-    raise RuntimeError(f"check failed: the profiler saw no "
-                       f"dense_sum_count kernel in {windows} windows")
+    EVENT_TIMED["calls"] += 1
+    ms = event_ms(fn, flush, iters)
+    log(f"the profiler saw no dense_sum_count kernel in {windows} "
+        f"windows; CUDA events time the call at {ms} ms")
+    return ms
+
+
+def event_ms(fn, flush=None, iters: int = PROFILE_ITERS) -> float:
+    """Mean ms per call of ``fn`` between two CUDA events recorded
+    around it on the stream; ``flush`` runs outside the events. A spin
+    kernel ahead of each start event keeps the stream busy while the
+    host enqueues the call, so the events hold its device work and not
+    the host's launch time."""
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.mean(s.elapsed_time(e) for s, e in pairs)
 
 
 def in_turns(fns: dict, flush=None) -> dict:
@@ -862,7 +934,256 @@ def phase_compare(dev, stage: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the q01 operator pipeline
+# ---------------------------------------------------------------------------
+
+def check_q01(got: dict, oracle: dict, tol: float, label: str) -> float:
+    """A collected q01 result against the numpy oracle: the store set,
+    counts and null masks identical, the float sums within ``tol`` of
+    each store's sum of |price| and the means within ``tol`` of its mean
+    |profit|. Returns the largest error as a share of its bound's
+    scale."""
+    keys = got["ss_store_sk"][0]
+    order = np.argsort(keys, kind="stable")
+    check(np.array_equal(keys[order], oracle["ss_store_sk"]),
+          f"{label}: the store set")
+    for name in got:
+        check(bool(got[name][1].all()), f"{label}: no null {name}")
+    check(np.array_equal(got["paid_cnt"][0][order], oracle["paid_cnt"]),
+          f"{label}: counts identical to the oracle")
+    worst = 0.0
+    for name, scale in (("total", oracle["total_abs"]),
+                        ("avg_profit", oracle["profit_abs"]
+                         / oracle["rows"])):
+        rel = np.abs(got[name][0][order] - oracle[name]) / scale
+        check(bool((rel <= tol).all()),
+              f"{label}: {name} within {tol} of the store's sum of |v|")
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def count_sync_warnings(fn) -> int:
+    """Synchronizing CUDA calls PyTorch's sync debug mode reports during
+    ``fn()``."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def dense_launches_per_batch(plan) -> int:
+    """cuda_sum_count launches per input batch of the plan's partial
+    AggOp: one per float sum or avg on the dense path, none otherwise."""
+    partial = plan.child.child
+    if partial.key_domain is None:
+        return 0
+    return sum(1 for spec in partial.specs if spec.fn in ("sum", "avg")
+               and spec.state_fields[0][1].is_floating)
+
+
+def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
+             batches: int, dev) -> dict:
+    """One plan: a checked run with the launch and sync counters from 0,
+    PIPE_RUNS timed queries after a warm-up, one profiled query, one
+    under PyTorch's sync debug mode."""
+    from auron_tpu_torch import entry as tentry
+
+    def query(metrics=None):
+        return tentry.q01_pipeline(make_source(), PIPE_PARTITIONS,
+                                   key_domain, metrics=metrics)
+
+    plan = tentry.q01_pipeline_plan(make_source(), PIPE_PARTITIONS,
+                                    key_domain)
+    log(f"pipeline {label}, the plan:\n{plan.tree_string().rstrip()}")
+    want = dense_launches_per_batch(plan) * batches
+    metrics = {}
+    steps = {}
+    t_step = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gagg.cuda_sum_count.launches = 0
+    s0 = host_readback.syncs
+    t0 = time.perf_counter()
+    got = query(metrics)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = gagg.cuda_sum_count.launches
+    syncs = host_readback.syncs - s0
+    peak = torch.cuda.max_memory_allocated()
+    worst = check_q01(got, oracle, tol, label)
+    check(launches == want, f"{label}: cuda_sum_count launched {launches} "
+          f"times, the plan implies {want}")
+    # every partition's partial AggOp records its path, and every final
+    # AggOp the sort path
+    agg = metrics["agg"].snapshot()
+    dense = agg.get("dispatch_cuda_dense", 0)
+    check(dense == (PIPE_PARTITIONS if key_domain else 0)
+          and agg.get("dispatch_sort", 0) == 2 * PIPE_PARTITIONS - dense,
+          f"{label}: the AggOps recorded the planned paths: {agg}")
+    elapsed = {name: m.snapshot().get("elapsed_compute", 0) / 1e6
+               for name, m in metrics.items()
+               if "elapsed_compute" in m.snapshot()}
+    steps["checked_s"] = time.perf_counter() - t_step
+
+    t_step = time.perf_counter()
+    query()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(PIPE_RUNS):
+        t0 = time.perf_counter()
+        query()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(runs)
+    steps["timed_s"] = time.perf_counter() - t_step
+    t_step = time.perf_counter()
+    prof = device_profile(query, iters=1, top=10, host_ops=False)
+    steps["profile_s"] = time.perf_counter() - t_step
+    t_step = time.perf_counter()
+    sync_warnings = count_sync_warnings(query)
+    steps["sync_debug_s"] = time.perf_counter() - t_step
+    out = {"rows": rows, "input_batches": batches,
+           "key_domain": key_domain, "first_ms": first_ms, "ms": ms,
+           "runs_ms": runs, "rows_per_s": rows / (ms / 1e3),
+           "host_syncs": syncs, "host_syncs_per_batch": syncs / batches,
+           "sync_warnings": sync_warnings,
+           "cuda_sum_count_launches": launches,
+           "elapsed_compute_ms": elapsed,
+           "peak_bytes": peak, "peak_above_inputs_bytes": peak - base,
+           "max_err_share": worst, "profile": prof,
+           "groups": int(got["ss_store_sk"][0].size), "steps_s": steps}
+    log(f"pipeline {label}: {json.dumps(out)}")
+    return out
+
+
+def pipeline_kernel_shape(cols: dict, domain: int, dev, rate: float
+                          ) -> dict:
+    """cuda_sum_count at the shape the dense plan gives it (2^16 rows of
+    q01's first batch, the key domain bucket_rows(2880)) against its
+    plain version, and timed beside it and the library call."""
+    n = 1 << 16
+    keep = cols["ss_quantity"][0][:n] > 5
+    k = torch.from_numpy(cols["ss_store_sk"][0][:n].astype(np.int32)).to(dev)
+    v = torch.from_numpy(np.where(keep, cols["ss_sales_price"][0][:n],
+                                  0.0).astype(np.float32)).to(dev)
+    c = torch.from_numpy(keep.astype(np.float32)).to(dev)
+    sums, counts = gagg.cuda_sum_count(k, v, c, domain)
+    ref_s, ref_c = gagg.sum_count_reference(k, v, c, domain)
+    torch.cuda.synchronize()
+    err = (sums.double() - ref_s.double()).abs()
+    check(torch.equal(counts, ref_c), "pipeline shape: counts identical")
+    check(bool((err <= F32_SUM_TOL * abs_sums(k, v, domain)).all()),
+          "pipeline shape: sums within 1e-5 of each key's sum of |v|")
+
+    def library():
+        s = torch.zeros(domain, dtype=torch.float32, device=dev)
+        cn = torch.zeros(domain, dtype=torch.float32, device=dev)
+        s.index_add_(0, k, v)
+        cn.index_add_(0, k, c)
+
+    bnd, by = bound_ms(n, domain, rate)
+    out = {"rows": n, "key_domain": domain,
+           "ms": time_ms(lambda: gagg.cuda_sum_count(k, v, c, domain)),
+           "plain_ms": time_ms(lambda: gagg.sum_count_reference(
+               k, v, c, domain)),
+           "library_ms": time_ms(library), "bound_ms": bnd,
+           "bound_by": by, "max_abs_err": float(err.max()),
+           "plan": gagg._device_plan(dev.index or 0, n, domain, None)}
+    log(f"kernel at the pipeline's shape: {json.dumps(out)}")
+    return out
+
+
+def phase_pipeline(dev, seed: int, rate: float) -> dict:
+    """p. The q01 operator pipeline at SF10 on the card."""
+    from auron_tpu_torch import entry as tentry
+    from auron_tpu_torch.it import tpcds_data
+    from auron_tpu_torch.utils.shapes import bucket_rows
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cols = tpcds_data.store_sales_columns(PIPE_SCALE, seed)
+    gen_s = time.perf_counter() - t0
+    rows = cols["ss_store_sk"][0].size
+    stores = tpcds_data.sizes(PIPE_SCALE)["stores"]
+    domain = bucket_rows(stores)
+    oracle = tpcds_data.q01_oracle(cols)
+    check(oracle["ss_store_sk"].size == stores, "every store has rows")
+    t0 = time.perf_counter()
+    src = tentry.store_sales_batches(cols, dev, PIPE_PARTITIONS)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    batches = sum(len(p) for p in src)
+    log(f"pipeline data: {rows} rows, {stores} stores, made in "
+        f"{gen_s:.2f} s; {batches} device batches of "
+        f"{src[0][0].capacity} rows, {torch.cuda.memory_allocated()} B on "
+        f"the card, uploaded in {upload_s:.2f} s")
+
+    # row order: plan (a) on the card gives the CPU's key order
+    t0 = time.perf_counter()
+    small = tpcds_data.store_sales_columns(PIPE_ORDER_SCALE, seed)
+    on_cpu = tentry.q01_pipeline(tentry.store_sales_batches(
+        small, "cpu", PIPE_PARTITIONS, 1 << 16), device="cpu")
+    on_card = tentry.q01_pipeline(tentry.store_sales_batches(
+        small, dev, PIPE_PARTITIONS, 1 << 16))
+    for name in ("ss_store_sk", "paid_cnt"):
+        check(np.array_equal(on_cpu[name][0], on_card[name][0]),
+              f"row order at scale {PIPE_ORDER_SCALE}: {name} identical "
+              "on the card and on the CPU, in order")
+    order_s = time.perf_counter() - t0
+    log(f"row order at scale {PIPE_ORDER_SCALE}: the card's "
+        f"{on_card['ss_store_sk'][0].size} groups in the CPU's order "
+        f"({order_s:.2f} s)")
+
+    out = {"scale": PIPE_SCALE, "rows": rows, "stores": stores,
+           "partitions": PIPE_PARTITIONS, "batches": batches,
+           "batch_rows": src[0][0].capacity, "generate_s": gen_s,
+           "upload_s": upload_s, "row_order_s": order_s,
+           "input_bytes": sum(c.data.nbytes + c.validity.nbytes
+                              for p in src for b in p for c in b.columns)}
+    out["sort"] = run_plan("(a) sort plan", lambda: src, None, oracle,
+                           F64_SUM_TOL, rows, batches, dev)
+    out["dense"] = run_plan("(b) dense plan", lambda: src, domain, oracle,
+                            F32_SUM_TOL, rows, batches, dev)
+    out["kernel_shape"] = pipeline_kernel_shape(cols, domain, dev, rate)
+    del src
+    torch.cuda.empty_cache()
+
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        log("pyarrow does not import on this machine: the parquet run "
+            "is skipped (the plan's scan source, not the device or the "
+            "kernel)")
+        out["parquet"] = None
+        out["phase_s"] = time.perf_counter() - t_phase
+        return out
+    root = tempfile.mkdtemp(prefix=".chip_smoke_parquet_", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        files = tpcds_data.write_store_sales(root, cols)
+        out["parquet_write_s"] = time.perf_counter() - t0
+        out["parquet"] = run_plan("(a) sort plan over parquet",
+                                  lambda: files, None, oracle, F64_SUM_TOL,
+                                  rows, batches, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"pipeline phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=42,
+                        help="seed of the pipeline phase's data")
+    args = parser.parse_args()
     card = phase_env()
     dev = torch.device("cuda")
     build_s, sass = phase_build()
@@ -873,6 +1194,7 @@ def main() -> int:
     table = phase_hash_table(dev)
     name = torch.cuda.get_device_name(0)
     rate = mem_bytes_per_s(name)
+    pipeline = phase_pipeline(dev, args.seed, rate)
     per_size, other = phase_times(dev, stage, rate)
     prof = phase_profile(dev, stage)
     for row in per_size:
@@ -888,6 +1210,13 @@ def main() -> int:
         "replaces": "auron_tpu/kernels/grouped_agg.py:98",
         "replaces_kernel": "_vmem_agg_kernel",
         "launches": launches, "launches_per_stage": 1,
+        "launches_pipeline": pipeline["dense"]["cuda_sum_count_launches"],
+        "launches_by_path": {
+            "stage": launches,
+            "pipeline_sort": pipeline["sort"]["cuda_sum_count_launches"],
+            "pipeline_dense": pipeline["dense"][
+                "cuda_sum_count_launches"]},
+        "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -904,9 +1233,11 @@ def main() -> int:
             cmp["shapes"]["single_group"])[default],
     }
     report = {"build_s": build_s, "stages": other["stages"],
+              "pipeline": pipeline,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
-              "compare": cmp, "sass": sass, "card": card}
+              "compare": cmp, "profiler_misses": EVENT_TIMED,
+              "sass": sass, "card": card}
     print(json.dumps(report))
     print(json.dumps({"kernels": [kernel]}))
     print(card)

@@ -261,7 +261,10 @@ def _forbidden(module: str) -> bool:
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = ("import sys, auron_tpu_torch.entry, auron_tpu_torch.hashtable, "
-            "auron_tpu_torch.kernels._build\nbad = sorted(m for m in "
+            "auron_tpu_torch.kernels._build, auron_tpu_torch.ops.agg, "
+            "auron_tpu_torch.parallel.exchange, auron_tpu_torch.io.parquet, "
+            "auron_tpu_torch.runtime.executor, "
+            "auron_tpu_torch.it.tpcds_data\nbad = sorted(m for m in "
             "sys.modules if m.split('.')[0]"
             f" in {_FORBIDDEN!r})\nprint(bad)\nsys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -282,3 +285,28 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 continue
             bad = [m for m in names if _forbidden(m)]
             assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_pipeline_imports_and_runs_without_pyarrow_or_pandas():
+    """The card may have neither pyarrow nor pandas: with both blocked,
+    the entry and AggOp import, and q01 runs over device batches through
+    collect_numpy."""
+    code = (
+        "import sys\n"
+        "sys.modules['pyarrow'] = None\nsys.modules['pandas'] = None\n"
+        "import auron_tpu_torch.entry as e, auron_tpu_torch.ops.agg\n"
+        "from auron_tpu_torch.it.tpcds_data import store_sales_columns\n"
+        "cols = store_sales_columns(0.05, 42)\n"
+        "out = e.q01_pipeline(e.store_sales_batches(cols, 'cpu'), "
+        "device='cpu')\n"
+        "print(sorted(out['ss_store_sk'][0].tolist()), "
+        "int(out['paid_cnt'][0].sum()))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('pyarrow', 'pandas') and sys.modules[m] is not None)\n"
+        "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["[0,", "1]", "4302"], proc.stdout

@@ -1,9 +1,11 @@
-"""The port's xxhash64 against the JAX package's: bit-identical.
+"""The port's xxhash64 and murmur3 against the JAX package's:
+bit-identical.
 
 Edge values of every primitive type the port hashes (0, ±1, the int32
-and int64 extremes, signed zeros, NaN, infinities), with nulls, one
-column at a time and chained across columns; plus the two word hashes
-with a tensor of running hashes as the seed.
+and int64 extremes, signed zeros, NaN, infinities, subnormals), with
+nulls, one column at a time and chained across columns; the word hashes
+with a tensor of running hashes as the seed; and the hash shuffle's
+partition ids (murmur3 seed 42, pmod) on the same values.
 """
 
 import numpy as np
@@ -12,10 +14,22 @@ import torch
 
 import jax.numpy as jnp
 
+from auron_tpu.columnar.batch import DeviceBatch as JBatch
 from auron_tpu.columnar.batch import PrimitiveColumn as JCol
+from auron_tpu.columnar.schema import DataType as JType
+from auron_tpu.columnar.schema import Field as JField
+from auron_tpu.columnar.schema import Schema as JSchema
+from auron_tpu.exprs import ir as jir
 from auron_tpu.ops import hashing as jh
+from auron_tpu.parallel.partitioning import HashPartitioning as JHash
 from auron_tpu_torch.columnar.batch import PrimitiveColumn as TCol
+from auron_tpu_torch.columnar.batch import batch_from_numpy
+from auron_tpu_torch.columnar.schema import DataType as TType
+from auron_tpu_torch.columnar.schema import Field as TField
+from auron_tpu_torch.columnar.schema import Schema as TSchema
+from auron_tpu_torch.exprs import ir as tir
 from auron_tpu_torch.ops import hashing as th
+from auron_tpu_torch.parallel.partitioning import HashPartitioning as THash
 
 I32, I64 = np.iinfo(np.int32), np.iinfo(np.int64)
 
@@ -87,3 +101,82 @@ def test_word_hashes_with_running_seed(width):
     want = jfn(jnp.asarray(vals), jnp.asarray(seeds).view(jnp.uint64))
     got = tfn(torch.from_numpy(vals), torch.from_numpy(seeds.copy()))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _murmur_both(arrays, seed=th.SPARK_SHUFFLE_SEED):
+    n = arrays[0].size
+    valids = [_valid(n, i + 10) for i in range(len(arrays))]
+    want = jh.murmur3_columns(
+        [JCol(jnp.asarray(a), jnp.asarray(v)) for a, v in zip(arrays, valids)],
+        n, seed)
+    got = th.murmur3_columns(
+        [TCol(torch.from_numpy(a.copy()), torch.from_numpy(v))
+         for a, v in zip(arrays, valids)], n, seed)
+    return np.asarray(want), got.numpy()
+
+
+@pytest.mark.parametrize("dtype", sorted(EDGE))
+def test_murmur3_column_matches_reference(dtype):
+    want, got = _murmur_both([EDGE[dtype]])
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_murmur3_chains_across_columns_and_keeps_seed_on_null():
+    want, got = _murmur_both([EDGE["int64"], EDGE["float64"],
+                              EDGE["int32"], EDGE["bool"],
+                              EDGE["float32"], EDGE["int8"]])
+    np.testing.assert_array_equal(got, want)
+    a = EDGE["int64"]
+    none = th.murmur3_columns(
+        [TCol(torch.from_numpy(a), torch.zeros(a.size, dtype=torch.bool))],
+        a.size)
+    assert (none == th.SPARK_SHUFFLE_SEED).all()
+
+
+@pytest.mark.parametrize("width", ["int64", "int32"])
+def test_murmur3_words_with_running_seed(width):
+    """murmur3_int64 / murmur3_int32 seeded by a column of running
+    int32 hashes, negative ones included."""
+    seeds = np.asarray(jh.murmur3_int64(jnp.asarray(EDGE["int64"]),
+                                        jnp.uint32(42)))
+    assert (seeds < 0).any()
+    vals = EDGE[width]
+    jfn = jh.murmur3_int64 if width == "int64" else jh.murmur3_int32
+    tfn = th.murmur3_int64 if width == "int64" else th.murmur3_int32
+    want = jfn(jnp.asarray(vals), jnp.asarray(seeds).view(jnp.uint32))
+    got = tfn(torch.from_numpy(vals), torch.from_numpy(seeds.copy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("num_partitions", [1, 4, 7, 200])
+def test_hash_partition_ids_match_reference(num_partitions):
+    """HashPartitioning.partition_ids on int64 (negative keys and the
+    extremes), float64 (±0.0, NaN, subnormals), int32 and float32 keys
+    with nulls, chained: pmod keeps every id in [0, n)."""
+    rng = np.random.default_rng(num_partitions)
+    n = 4096
+    cols = {
+        "k": np.concatenate([EDGE["int64"], rng.integers(
+            I64.min, I64.max, n - 12, dtype=np.int64)]),
+        "f": np.concatenate([EDGE["float64"], rng.normal(size=n - 12)]),
+        "i": np.concatenate([EDGE["int32"], rng.integers(
+            I32.min, I32.max, n - 12).astype(np.int32)]),
+        "g": np.concatenate([EDGE["float32"], rng.normal(
+            size=n - 12).astype(np.float32)]),
+    }
+    valid = {c: _valid(n, j) for j, c in enumerate(cols)}
+    types = {"k": "INT64", "f": "FLOAT64", "i": "INT32", "g": "FLOAT32"}
+    jschema = JSchema(tuple(JField(c, JType[types[c]]) for c in cols))
+    tschema = TSchema(tuple(TField(c, TType[types[c]]) for c in cols))
+    jbatch = JBatch(tuple(JCol(jnp.asarray(cols[c]), jnp.asarray(valid[c]))
+                          for c in cols), jnp.asarray(n, jnp.int32))
+    tbatch = batch_from_numpy([(cols[c], valid[c]) for c in cols], n, "cpu")
+    for keys in ([0], [1], [2, 3], [0, 1, 2, 3]):
+        want = np.asarray(JHash(tuple(jir.ColumnRef(i) for i in keys),
+                                num_partitions).partition_ids(jbatch,
+                                                              jschema))
+        got = THash(tuple(tir.ColumnRef(i) for i in keys),
+                    num_partitions).partition_ids(tbatch, tschema).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got.min() >= 0 and got.max() < num_partitions
