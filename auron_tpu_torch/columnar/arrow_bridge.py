@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from auron_tpu_torch import resolve_device
 from auron_tpu_torch.columnar.batch import DeviceBatch, PrimitiveColumn
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.ops.base import host_copy, host_readback
@@ -141,11 +142,11 @@ def _column_to_device(field: Field, arr, cap: int,
     return host_to_device(data, validity, cap, device)
 
 
-def to_device(rb, capacity: int | None = None, device="cpu"
+def to_device(rb, capacity: int | None = None, device=None
               ) -> tuple[DeviceBatch, Schema]:
     """Convert a pyarrow RecordBatch into a padded DeviceBatch on
-    ``device``."""
-    dev = torch.device(device)
+    ``device`` (``cuda`` unless another is named)."""
+    dev = resolve_device(device)
     schema = schema_from_arrow(rb.schema)
     n = rb.num_rows
     cap = capacity if capacity is not None else bucket_rows(n)

@@ -92,6 +92,12 @@ class Schema:
     def __getitem__(self, i) -> Field:
         return self.fields[i]
 
+    def index_of(self, name: str) -> int:
+        for i, f in enumerate(self.fields):
+            if f.name == name:
+                return i
+        raise KeyError(f"no field named {name!r} in {self.names}")
+
     @property
     def names(self) -> list[str]:
         return [f.name for f in self.fields]

@@ -99,6 +99,11 @@ HASHTABLE_MAX_PROBE_ROUNDS = _opt(
 
 
 # batching / shapes
+BATCH_CAPACITY = _opt(
+    "auron.batch.capacity", int, 1 << 16,
+    "Default rows per device batch (scan batch size and the planner's "
+    "capacity bucketing target). Larger batches amortize kernel launches; "
+    "smaller ones reduce padding waste on ragged inputs.")
 PARQUET_BATCH_ROWS = _opt(
     "auron.io.parquet.batch_rows", int, 1 << 16,
     "Row-group read granularity for the parquet/ORC scans when the plan "
@@ -130,6 +135,21 @@ AGG_PARTIAL_SKIP_RATIO = _opt(
 AGG_PARTIAL_SKIP_MIN_ROWS = _opt(
     "auron.agg.partial_skip.min_rows", int, 1 << 16,
     "Input rows to observe before the skip decision is made.")
+# whole-stage fusion (ir/planner.fuse_stages, ops/fused.py)
+FUSION_ENABLED = _opt(
+    "auron.fusion.enabled", bool, True,
+    "Whole-stage fusion: the planner chains maximal runs of row-local "
+    "operators (filter, project, limit-within-batch, rename) into one "
+    "FusedStageOp per stage, which runs its members' per-batch steps in "
+    "order with one carry per member. Off runs every operator on its "
+    "own. The plan NORMALIZATION half of the pass (pre-agg key/value "
+    "projection, pure-projection elision under aggs) applies under BOTH "
+    "settings, so on and off give the same rows; 'off' restores the "
+    "per-operator layout, not the exact pre-fusion plan shape.")
+FUSION_MAX_STAGE_OPS = _opt(
+    "auron.fusion.max_stage_ops", int, 8,
+    "Longest operator chain a single fused stage may contain. Longer "
+    "chains split into multiple stages.")
 
 
 def file_scan_batch_rows(conf: "AuronConfig", device) -> int:

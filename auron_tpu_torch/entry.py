@@ -24,9 +24,9 @@ computes it on the device hash table (hashtable/): claim-owner probe
 rounds build the group table and the sum/count accumulators scatter into
 their slots, with no sort.
 
-``q01_pipeline_plan`` builds the physical plan the reference planner
-builds for ``it.queries.q01_dataframe`` (scan → filter → partial AggOp →
-4-way hash exchange → final AggOp), and ``q01_pipeline`` runs it through
+``q01_pipeline_plan`` gives the physical plan of
+``it.queries.q01_dataframe`` (scan → filter → partial AggOp → 4-way hash
+exchange → final AggOp), and ``q01_pipeline`` runs it through
 ``runtime.executor.collect_numpy``:
 
     AggOp[final: 1 keys; sum,count,avg]
@@ -35,10 +35,13 @@ builds for ``it.queries.q01_dataframe`` (scan → filter → partial AggOp →
           FilterOp[1 predicates]
             ParquetScanOp[4 files]  (or DeviceBatchScanOp)
 
-With ``key_domain=None`` it is the planner's plan, whose AggOps take the
-sort path; an integer bound on the store key is the dense plan, whose
-partial AggOp reaches ``kernels/grouped_agg.cuda_sum_count`` twice per
-batch on a CUDA device (the float sum and the avg).
+Over parquet files the plan comes from the front end
+(``frontend.Session.read_parquet`` and ``Session.plan_physical``). Over
+device batches, which no plan node can name, the same tree is built by
+hand; there ``key_domain=None`` is the planner's plan, whose AggOps take
+the sort path, and an integer bound on the store key is the dense plan,
+whose partial AggOp reaches ``kernels/grouped_agg.cuda_sum_count`` twice
+per batch on a CUDA device (the float sum and the avg).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import evaluate
 from auron_tpu_torch.hashtable import grouped_agg_once
-from auron_tpu_torch.io.parquet import DeviceBatchScanOp, ParquetScanOp
+from auron_tpu_torch.io.parquet import DeviceBatchScanOp
 from auron_tpu_torch.it.tpcds_data import fact_file_bounds
 from auron_tpu_torch.kernels import dispatch, registry
 from auron_tpu_torch.kernels import grouped_agg as gagg
@@ -309,24 +312,27 @@ def store_sales_batches(cols: dict, device, partitions: int = 4,
 def q01_pipeline_plan(source, partitions: int = 4,
                       key_domain: int | None = None, device=None,
                       conf=None):
-    """The reference planner's physical plan of q01 over ``source``: a
-    list of parquet files (→ ``ParquetScanOp`` on ``device``) or a list
-    of per-partition lists of ``DeviceBatch``es (→ ``DeviceBatchScanOp``
-    on their device). ``key_domain`` set gives the partial AggOp the
-    dense hint."""
+    """The physical plan of q01 over ``source``: a list of parquet files
+    (planned by a ``Session`` on ``device``) or a list of per-partition
+    lists of ``DeviceBatch``es (→ ``DeviceBatchScanOp`` on their device,
+    the planner's tree built by hand). ``key_domain`` set gives the
+    partial AggOp over device batches the dense hint; the planner
+    derives none over parquet files."""
     conf = conf or cfg.get_config()
     if source and isinstance(source[0], str):
-        dev = resolve_device(device)
-        scan = ParquetScanOp(list(source),
-                             batch_rows=cfg.file_scan_batch_rows(conf, dev),
-                             device=dev)
-        if scan.schema() != STORE_SALES_SCHEMA:
-            raise ValueError(f"not store_sales: {scan.schema()}")
-    else:
-        empty = not any(part for part in source)
-        scan = DeviceBatchScanOp(
-            source, STORE_SALES_SCHEMA,
-            device=resolve_device(device) if empty else None)
+        if key_domain is not None:
+            raise ValueError("a key_domain hint needs device batches: "
+                             "the planner derives none over parquet")
+        from auron_tpu_torch.frontend.session import Session
+        from auron_tpu_torch.it.queries import q01_dataframe
+        session = Session(config=conf, device=device)
+        df = q01_dataframe(session, {"store_sales": list(source)},
+                           partitions)
+        return session.plan_physical(df)
+    empty = not any(part for part in source)
+    scan = DeviceBatchScanOp(
+        source, STORE_SALES_SCHEMA,
+        device=resolve_device(device) if empty else None)
     cap = conf.get(cfg.AGG_INITIAL_CAPACITY)
     partial = AggOp(FilterOp(scan, list(Q01_PREDICATES)), list(Q01_GROUP),
                     list(Q01_AGGS), mode="partial",

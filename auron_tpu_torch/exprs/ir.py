@@ -72,6 +72,13 @@ class IsNotNull(Expr):
 
 
 @dataclass(frozen=True)
+class SortOrder:
+    expr: Expr
+    ascending: bool = True
+    nulls_first: bool = True
+
+
+@dataclass(frozen=True)
 class AggFunction:
     """One aggregate: fn in {sum,count,avg,min,max,first,first_ignores_null,
     count_star, bloom_filter, collect_list, collect_set}; the port's

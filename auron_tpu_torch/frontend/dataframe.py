@@ -1,0 +1,347 @@
+"""DataFrame DSL → protobuf plan builder.
+
+The port of ``auron_tpu.frontend.dataframe`` for the expressions and
+transforms the port can run. Unresolved column names resolve against
+the child's schema when a transform is built. A DataFrame serializes to
+the same ``TaskDefinition`` bytes as the reference's for the same
+query; what the port cannot plan yet (casts, IN lists, string
+predicates, scalar functions, DISTINCT aggregates, sorts, joins,
+windows, host functions) raises ``NotImplementedError`` or is absent.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Union
+
+from auron_tpu_torch.columnar.schema import DataType, Field, Schema
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.exprs.eval import infer_dtype
+from auron_tpu_torch.ir import auron_pb2 as pb
+from auron_tpu_torch.ir import serde
+
+# ---------------------------------------------------------------------------
+# column expressions (unresolved)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Col:
+    """Unresolved expression + optional alias."""
+
+    node: Any             # column name | ir.Expr | tagged tuple of Cols
+    name: Optional[str] = None
+
+    def _bin(self, op, other) -> "Col":
+        return Col(("bin", op, self, _wrap(other)))
+
+    def __add__(self, o): return self._bin("+", o)
+    def __radd__(self, o): return _wrap(o)._bin("+", self)
+    def __sub__(self, o): return self._bin("-", o)
+    def __rsub__(self, o): return _wrap(o)._bin("-", self)
+    def __mul__(self, o): return self._bin("*", o)
+    def __rmul__(self, o): return _wrap(o)._bin("*", self)
+    def __truediv__(self, o): return self._bin("/", o)
+    def __mod__(self, o): return self._bin("%", o)
+    def __eq__(self, o): return self._bin("==", o)      # type: ignore
+    def __ne__(self, o): return self._bin("!=", o)      # type: ignore
+    def __lt__(self, o): return self._bin("<", o)
+    def __le__(self, o): return self._bin("<=", o)
+    def __gt__(self, o): return self._bin(">", o)
+    def __ge__(self, o): return self._bin(">=", o)
+    def __and__(self, o): return self._bin("and", o)
+    def __or__(self, o): return self._bin("or", o)
+    def __invert__(self): return Col(("not", self))
+
+    def __hash__(self):
+        return id(self)
+
+    def alias(self, name: str) -> "Col":
+        return Col(self.node, name)
+
+    def is_null(self) -> "Col":
+        return Col(("is_null", self))
+
+    def is_not_null(self) -> "Col":
+        return Col(("is_not_null", self))
+
+    def out_name(self, default: str = "col") -> str:
+        if self.name:
+            return self.name
+        if isinstance(self.node, str):
+            return self.node
+        return default
+
+
+@dataclass(frozen=True)
+class AggCol:
+    fn: str
+    arg: Optional[Col]
+    name: Optional[str] = None
+    distinct: bool = False
+
+    def alias(self, name: str) -> "AggCol":
+        return AggCol(self.fn, self.arg, name, self.distinct)
+
+    def out_name(self, i: int) -> str:
+        if self.name:
+            return self.name
+        argname = self.arg.out_name() if self.arg is not None else ""
+        return f"{self.fn}({argname})" if argname else self.fn
+
+
+def col(name: str) -> Col:
+    return Col(name)
+
+
+def lit(value, dtype: Optional[DataType] = None) -> Col:
+    return Col(("lit", value, dtype))
+
+
+def _wrap(v) -> Col:
+    return v if isinstance(v, Col) else lit(v)
+
+
+def _py_dtype(v) -> DataType:
+    if isinstance(v, bool):
+        return DataType.BOOL
+    if isinstance(v, int):
+        return DataType.INT64
+    if isinstance(v, float):
+        return DataType.FLOAT64
+    if isinstance(v, str):
+        return DataType.STRING
+    raise TypeError(f"cannot infer literal type for {type(v).__name__}")
+
+
+_UNARY = {"not": ir.Not, "is_null": ir.IsNull, "is_not_null": ir.IsNotNull}
+
+
+def resolve(c: Col, schema: Schema) -> ir.Expr:
+    """Resolve a Col tree to a bound ir.Expr against ``schema``."""
+    n = c.node
+    if isinstance(n, str):
+        return ir.ColumnRef(schema.index_of(n), n)
+    if isinstance(n, ir.Expr):
+        return n
+    tag = n[0]
+    if tag == "lit":
+        _, value, dtype = n
+        if value is None:
+            return ir.Literal(None, dtype or DataType.NULL)
+        return ir.Literal(value, dtype or _py_dtype(value))
+    if tag == "bin":
+        _, op, left, right = n
+        return ir.BinaryExpr(op, resolve(left, schema), resolve(right, schema))
+    if tag in _UNARY:
+        return _UNARY[tag](resolve(n[1], schema))
+    raise NotImplementedError(f"cannot resolve column node {tag!r}")
+
+
+class _Functions:
+    """``functions.sum(col)`` / ``functions.count_star()``: the aggregate
+    builders of the aggregates the port's AggOp runs."""
+
+    @staticmethod
+    def _agg(fn: str, c, distinct: bool) -> AggCol:
+        return AggCol(fn, _wrap(c) if c is not None else None,
+                      distinct=distinct)
+
+    def sum(self, c, distinct: bool = False) -> AggCol:
+        return self._agg("sum", c, distinct)
+
+    def count(self, c, distinct: bool = False) -> AggCol:
+        return self._agg("count", c, distinct)
+
+    def avg(self, c, distinct: bool = False) -> AggCol:
+        return self._agg("avg", c, distinct)
+
+    def min(self, c, distinct: bool = False) -> AggCol:
+        return self._agg("min", c, distinct)
+
+    def max(self, c, distinct: bool = False) -> AggCol:
+        return self._agg("max", c, distinct)
+
+    def first(self, c, distinct: bool = False) -> AggCol:
+        return self._agg("first", c, distinct)
+
+    def count_star(self) -> AggCol:
+        return AggCol("count_star", None)
+
+
+functions = _Functions()
+
+
+# ---------------------------------------------------------------------------
+# DataFrame
+# ---------------------------------------------------------------------------
+
+class GroupedData:
+    def __init__(self, df: "DataFrame", keys: Sequence[Col]):
+        self.df = df
+        self.keys = [_wrap(k) for k in keys]
+
+    def agg(self, *aggs: AggCol) -> "DataFrame":
+        """The reference's plan: over several partitions a partial agg on
+        every map partition → exchange (hash on the keys; single for a
+        global agg) → final agg; over one partition a complete agg."""
+        from auron_tpu_torch.ops.agg import make_acc_spec
+        distinct = [a.fn for a in aggs if a.distinct]
+        if distinct:
+            raise NotImplementedError(
+                f"DISTINCT aggregates ({', '.join(distinct)})")
+        schema = self.df.schema
+        group_exprs = [resolve(k, schema) for k in self.keys]
+        group_names = [k.out_name(f"k{i}") for i, k in enumerate(self.keys)]
+        agg_fns = [ir.AggFunction(
+            a.fn, resolve(a.arg, schema) if a.arg is not None else None)
+            for a in aggs]
+        agg_names = [a.out_name(i) for i, a in enumerate(aggs)]
+        n_keys = len(group_exprs)
+        n_part = self.df.num_partitions
+
+        out_partitions = n_part
+        if n_part > 1:
+            partial = pb.PlanNode(agg=pb.AggNode(
+                child=self.df.plan,
+                group_exprs=[serde.expr_to_proto(e) for e in group_exprs],
+                aggs=[serde.agg_to_proto(a) for a in agg_fns],
+                mode="partial", group_names=group_names,
+                agg_names=agg_names))
+            if n_keys > 0:
+                part = pb.PartitioningP(
+                    kind="hash", num_partitions=n_part,
+                    hash_keys=[serde.expr_to_proto(ir.ColumnRef(i))
+                               for i in range(n_keys)])
+            else:
+                part = pb.PartitioningP(kind="single", num_partitions=1)
+                out_partitions = 1
+            shuffle = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
+                child=partial, partitioning=part, input_partitions=n_part))
+            node = pb.PlanNode(agg=pb.AggNode(
+                child=shuffle,
+                group_exprs=[serde.expr_to_proto(ir.ColumnRef(i))
+                             for i in range(n_keys)],
+                aggs=[serde.agg_to_proto(ir.AggFunction(a.fn))
+                      for a in agg_fns],
+                mode="final", group_names=group_names,
+                agg_names=agg_names))
+        else:
+            node = pb.PlanNode(agg=pb.AggNode(
+                child=self.df.plan,
+                group_exprs=[serde.expr_to_proto(e) for e in group_exprs],
+                aggs=[serde.agg_to_proto(a) for a in agg_fns],
+                mode="complete", group_names=group_names,
+                agg_names=agg_names))
+
+        fields = []
+        for e, nm in zip(group_exprs, group_names):
+            dt, p, s = infer_dtype(e, schema)
+            fields.append(Field(nm, dt, True, p, s))
+        for a, nm in zip(agg_fns, agg_names):
+            dt, p, s = make_acc_spec(a, schema, "complete").result
+            fields.append(Field(nm, dt, True, p, s))
+        return DataFrame(self.df.session, node, Schema(tuple(fields)),
+                         out_partitions)
+
+
+class DataFrame:
+    def __init__(self, session, plan: pb.PlanNode, schema: Schema,
+                 num_partitions: int = 1):
+        self.session = session
+        self.plan = plan
+        self.schema = schema
+        self.num_partitions = num_partitions
+
+    # -- transforms ---------------------------------------------------------
+
+    def filter(self, cond: Col) -> "DataFrame":
+        e = resolve(cond, self.schema)
+        node = pb.PlanNode(filter=pb.FilterNode(
+            child=self.plan, predicates=[serde.expr_to_proto(e)]))
+        return DataFrame(self.session, node, self.schema,
+                         self.num_partitions)
+
+    def select(self, *cols: Union[str, Col]) -> "DataFrame":
+        cs = [col(c) if isinstance(c, str) else c for c in cols]
+        exprs = [resolve(c, self.schema) for c in cs]
+        names = [c.out_name(f"c{i}") for i, c in enumerate(cs)]
+        node = pb.PlanNode(project=pb.ProjectNode(
+            child=self.plan, exprs=[serde.expr_to_proto(e) for e in exprs],
+            names=names))
+        fields = []
+        for e, nm in zip(exprs, names):
+            dt, p, s = infer_dtype(e, self.schema)
+            fields.append(Field(nm, dt, True, p, s))
+        return DataFrame(self.session, node, Schema(tuple(fields)),
+                         self.num_partitions)
+
+    def with_column(self, name: str, c: Col) -> "DataFrame":
+        existing = [col(f.name) for f in self.schema]
+        return self.select(*existing, c.alias(name))
+
+    def group_by(self, *keys: Union[str, Col]) -> GroupedData:
+        return GroupedData(self, [col(k) if isinstance(k, str) else k
+                                  for k in keys])
+
+    def limit(self, n: int) -> "DataFrame":
+        child = self.plan
+        out_partitions = self.num_partitions
+        if self.num_partitions > 1:
+            # LIMIT is global: a map-side limit caps each partition at n
+            # rows, a coalescing exchange gathers them, and the global
+            # limit truncates
+            child = pb.PlanNode(limit=pb.LimitNode(child=child, limit=n))
+            child = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
+                child=child,
+                partitioning=pb.PartitioningP(kind="single",
+                                              num_partitions=1),
+                input_partitions=self.num_partitions))
+            out_partitions = 1
+        node = pb.PlanNode(limit=pb.LimitNode(child=child, limit=n))
+        return DataFrame(self.session, node, self.schema, out_partitions)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        if other.num_partitions != self.num_partitions:
+            raise ValueError(
+                "union requires equal partition counts "
+                f"({self.num_partitions} vs {other.num_partitions}); "
+                "repartition one side first")
+        node = pb.PlanNode(union=pb.UnionNode(
+            children=[self.plan, other.plan]))
+        return DataFrame(self.session, node, self.schema,
+                         self.num_partitions)
+
+    def repartition(self, n: int, *keys: Union[str, Col]) -> "DataFrame":
+        if keys:
+            ks = [col(k) if isinstance(k, str) else k for k in keys]
+            part = pb.PartitioningP(
+                kind="hash", num_partitions=n,
+                hash_keys=[serde.expr_to_proto(resolve(k, self.schema))
+                           for k in ks])
+        else:
+            part = pb.PartitioningP(kind="round_robin", num_partitions=n)
+        node = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
+            child=self.plan, partitioning=part,
+            input_partitions=self.num_partitions))
+        return DataFrame(self.session, node, self.schema, n)
+
+    # -- actions ------------------------------------------------------------
+
+    def task_bytes(self, partition_id: int = 0) -> bytes:
+        return pb.TaskDefinition(
+            partition_id=partition_id, num_partitions=self.num_partitions,
+            plan=self.plan).SerializeToString()
+
+    def collect(self, metrics: Optional[dict] = None):
+        """Plan, run every partition and return a pyarrow Table.
+        ``metrics``, when given, receives the operators' name-keyed
+        metrics of the run."""
+        return self.session.execute(self, metrics=metrics)
+
+    def to_pandas(self):
+        return self.collect().to_pandas()
+
+    def explain(self) -> str:
+        """The physical plan tree."""
+        return self.session.plan_physical(self).tree_string()

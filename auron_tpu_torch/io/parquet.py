@@ -1,11 +1,14 @@
 """Scans: parquet files, in-memory Arrow batches, device batches.
 
-The port of ``auron_tpu.io.parquet``. ``ParquetScanOp`` reads every
-column with pyarrow (column pruning and predicate pushdown wait for the
-planner, which asks for them) and hands padded ``DeviceBatch``es to the
-device through the pinned host → device copy of
-``columnar/arrow_bridge.py``, synchronously on the query thread: the reference's serial mode. Its background
-prefetcher (``ScanPrefetcher``) waits for a later slice.
+The port of ``auron_tpu.io.parquet``. ``ParquetScanOp`` reads the
+columns it is asked for (all by default) with pyarrow and hands padded
+``DeviceBatch``es to the device through the pinned host → device copy
+of ``columnar/arrow_bridge.py``, synchronously on the query thread: the
+reference's serial mode. Predicate pushdown and the background
+prefetcher (``ScanPrefetcher``) wait for a later slice.
+
+The Arrow scans run on ``cuda`` unless they are given another device,
+and raise without CUDA (``auron_tpu_torch.resolve_device``).
 
 pyarrow is imported inside the functions that read Arrow data, so
 ``DeviceBatchScanOp`` — a scan over batches already on the device —
@@ -16,8 +19,7 @@ from __future__ import annotations
 
 from typing import Iterator, Optional
 
-import torch
-
+from auron_tpu_torch import resolve_device
 from auron_tpu_torch.columnar.arrow_bridge import schema_from_arrow, to_device
 from auron_tpu_torch.columnar.batch import DeviceBatch
 from auron_tpu_torch.columnar.schema import Schema
@@ -30,12 +32,18 @@ class ParquetScanOp(PhysicalOp):
     name = "parquet_scan"
 
     def __init__(self, files: list[str], schema: Optional[Schema] = None,
-                 batch_rows: int = DEFAULT_BATCH_CAPACITY, device="cpu"):
+                 columns: Optional[list[str]] = None,
+                 batch_rows: int = DEFAULT_BATCH_CAPACITY, device=None):
+        import pyarrow as pa
         import pyarrow.dataset as pa_ds
         self.files = list(files)
+        self.columns = list(columns) if columns else None
         self.batch_rows = batch_rows
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         arrow_schema = pa_ds.dataset(self.files, format="parquet").schema
+        if self.columns:
+            arrow_schema = pa.schema([arrow_schema.field(c)
+                                      for c in self.columns])
         self._schema = schema or schema_from_arrow(arrow_schema)
         self._cap_cache: dict[int, int] = {}
 
@@ -80,7 +88,7 @@ class ParquetScanOp(PhysicalOp):
                 return
             import pyarrow.dataset as pa_ds
             scanner = pa_ds.dataset(files, format="parquet").scanner(
-                batch_size=self.batch_rows)
+                columns=self.columns, batch_size=self.batch_rows)
             for rb in scanner.to_batches():
                 if rb.num_rows == 0:
                     continue
@@ -110,11 +118,11 @@ class MemoryScanOp(PhysicalOp):
     name = "memory_scan"
 
     def __init__(self, partitions: list, schema: Schema,
-                 capacity: int = DEFAULT_BATCH_CAPACITY, device="cpu"):
+                 capacity: int = DEFAULT_BATCH_CAPACITY, device=None):
         self.partitions = partitions
         self._schema = schema
         self.capacity = capacity
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @property
     def children(self):
@@ -160,7 +168,7 @@ class DeviceBatchScanOp(PhysicalOp):
             device = first.device
         self.partitions = partitions
         self._schema = schema
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     @property
     def children(self):

@@ -1,0 +1,434 @@
+"""Physical planner: proto PlanNode → PhysicalOp tree.
+
+The port of ``auron_tpu.ir.planner`` for the nodes the port has
+operators for: the parquet, memory and empty-partitions scans, filter,
+project, agg, limit, union, coalesce, rename and the shuffle writer on
+its host route. Every other node raises ``NotImplementedError`` naming
+it. Scans run on the context's device.
+
+After planning, ``fuse_stages`` chains row-local operators into
+``FusedStageOp``s as the reference's pass does. Two of the reference's
+post-planning passes wait: the map-side combine fold
+(``_fold_combine``, with ``AggOp.build_combine_stage``), so every
+exchange stays unfolded, which gives the same rows; and the mesh
+annotation (``annotate_mesh``), with the mesh.
+
+pyarrow is imported inside the functions that read Arrow data.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Any, Optional
+
+from auron_tpu_torch import config as cfg
+from auron_tpu_torch import resolve_device
+from auron_tpu_torch.exprs import ir as eir
+from auron_tpu_torch.ir import auron_pb2 as pb
+from auron_tpu_torch.ir import serde
+from auron_tpu_torch.ops.base import PhysicalOp
+
+
+@dataclass
+class PlannerContext:
+    """Host-side environment plans resolve against.
+
+    catalog: table name → pyarrow.Table (or a list of per-partition
+      RecordBatch lists) for MemoryScanNode.
+    device: where the plan's scans put their batches: ``cuda`` unless
+      another is named (``resolve_device``).
+
+    The reference's resource map (the inputs of IPC-reader and
+    broadcast-join nodes) and plan fingerprint (the key of ir/cost.py's
+    history) come with the nodes and the cost model that read them.
+    """
+
+    catalog: dict[str, Any] = field(default_factory=dict)
+    # None = resolve from the config (auron.batch.capacity)
+    batch_capacity: Optional[int] = None
+    config: Optional[Any] = None
+    device: Any = None
+    #: (table name, column index) -> (table, (min, max)): the key-column
+    #: stats scan of the dense-domain derivation, paid once per
+    #: registered table; hits only on the same table object (``is``)
+    _col_stats: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.config is None:
+            self.config = cfg.get_config()
+        if self.batch_capacity is None:
+            self.batch_capacity = self.config.get(cfg.BATCH_CAPACITY)
+        self.device = resolve_device(self.device)
+
+
+class PhysicalPlanner:
+    def __init__(self, ctx: Optional[PlannerContext] = None):
+        self.ctx = ctx or PlannerContext()
+
+    # -- entry points -------------------------------------------------------
+
+    def plan_task(self, task: pb.TaskDefinition) -> PhysicalOp:
+        return self.finalize_plan(self.create_plan(task.plan))
+
+    def finalize_plan(self, op: PhysicalOp) -> PhysicalOp:
+        """Post-planning passes over the operator tree: whole-stage
+        fusion."""
+        return fuse_stages(op, self.ctx.config)
+
+    def create_plan(self, node: pb.PlanNode) -> PhysicalOp:
+        kind = node.WhichOneof("node")
+        if kind is None:
+            raise ValueError("empty PlanNode")
+        handler = getattr(self, f"_plan_{kind}", None)
+        if handler is None:
+            raise NotImplementedError(f"plan node {kind!r} not supported yet")
+        return handler(getattr(node, kind))
+
+    # -- sources ------------------------------------------------------------
+
+    def _file_scan_batch_rows(self) -> int:
+        return cfg.file_scan_batch_rows(self.ctx.config, self.ctx.device)
+
+    def _plan_parquet_scan(self, n: pb.ParquetScanNode) -> PhysicalOp:
+        from auron_tpu_torch.io.parquet import ParquetScanOp
+        if n.predicates:
+            raise NotImplementedError("parquet scan predicate pushdown")
+        return ParquetScanOp(
+            files=list(n.files),
+            schema=serde.parse_schema(n.schema) if n.schema.fields else None,
+            columns=list(n.columns) or None,
+            batch_rows=n.batch_rows or self._file_scan_batch_rows(),
+            device=self.ctx.device,
+        )
+
+    def _plan_memory_scan(self, n: pb.MemoryScanNode) -> PhysicalOp:
+        import pyarrow as pa
+        from auron_tpu_torch.columnar.arrow_bridge import schema_from_arrow
+        from auron_tpu_torch.io.parquet import MemoryScanOp
+        if n.table_name not in self.ctx.catalog:
+            raise KeyError(
+                f"table {n.table_name!r} not in planner catalog "
+                f"(known: {sorted(self.ctx.catalog)})")
+        table = self.ctx.catalog[n.table_name]
+        if isinstance(table, pa.Table):
+            partitions = [table.to_batches(
+                max_chunksize=n.batch_rows or self.ctx.batch_capacity)]
+            schema = schema_from_arrow(table.schema)
+        else:  # pre-partitioned: list[list[RecordBatch]]
+            partitions = table
+            schema = schema_from_arrow(partitions[0][0].schema)
+        return MemoryScanOp(partitions, schema,
+                            capacity=n.batch_rows or self.ctx.batch_capacity,
+                            device=self.ctx.device)
+
+    def _plan_empty_partitions(self, n: pb.EmptyPartitionsNode
+                               ) -> PhysicalOp:
+        from auron_tpu_torch.ops.limit import EmptyPartitionsOp
+        return EmptyPartitionsOp(serde.parse_schema(n.schema),
+                                 n.num_partitions)
+
+    # -- row transforms -----------------------------------------------------
+
+    def _plan_filter(self, n: pb.FilterNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.project import FilterOp
+        return FilterOp(self.create_plan(n.child),
+                        [serde.parse_expr(p) for p in n.predicates])
+
+    def _plan_project(self, n: pb.ProjectNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.project import ProjectOp
+        return ProjectOp(self.create_plan(n.child),
+                         [serde.parse_expr(e) for e in n.exprs],
+                         list(n.names))
+
+    def _plan_agg(self, n: pb.AggNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.agg import AggOp
+        child = self.create_plan(n.child)
+        group_exprs = [serde.parse_expr(e) for e in n.group_exprs]
+        aggs = [serde.parse_agg(a) for a in n.aggs]
+        return AggOp(
+            child, group_exprs, aggs,
+            mode=n.mode or "complete",
+            group_names=list(n.group_names) or None,
+            agg_names=list(n.agg_names) or None,
+            initial_capacity=self.ctx.config.get(cfg.AGG_INITIAL_CAPACITY),
+            key_domain=self._agg_key_domain(n, child, group_exprs, aggs),
+        )
+
+    def _agg_key_domain(self, n: pb.AggNode, child: PhysicalOp,
+                        group_exprs, aggs) -> Optional[int]:
+        """Table-stats key-domain bound for the dense grouped-agg path:
+        proven, not guessed. A bound is derived only when the single
+        group key is a direct ColumnRef reaching a catalog memory table
+        through schema-preserving nodes, the key column is integer,
+        null-free and non-negative, and every aggregate is exact under
+        the dense formulation (count/min/max, and sum/avg over integers;
+        float sums are left to the general path, as in the reference).
+        The operator re-checks the bound at run time."""
+        import pyarrow as pa
+        from auron_tpu_torch.columnar.schema import DataType
+        from auron_tpu_torch.exprs.eval import infer_dtype
+        from auron_tpu_torch.kernels.dispatch import DENSE_VALUE_DTYPES
+        conf = self.ctx.config
+        try:
+            if not conf.get(cfg.KERNELS_ENABLED):
+                return None
+            if (n.mode or "complete") not in ("partial", "complete"):
+                return None
+            if len(group_exprs) != 1 or not isinstance(group_exprs[0],
+                                                       eir.ColumnRef):
+                return None
+            schema = child.schema()
+            ints = (DataType.INT8, DataType.INT16, DataType.INT32,
+                    DataType.INT64)
+            for a in aggs:
+                if a.distinct and a.fn not in ("min", "max"):
+                    return None
+                # mirror the runtime dispatch's value-dtype filter, so
+                # the stats scan is never paid for a plan that falls back
+                if a.arg is not None and \
+                        infer_dtype(a.arg, schema)[0] not in \
+                        DENSE_VALUE_DTYPES:
+                    return None
+                if a.fn in ("count", "count_star", "min", "max"):
+                    continue
+                if a.fn in ("sum", "avg") and a.arg is not None \
+                        and infer_dtype(a.arg, schema)[0] in ints:
+                    continue
+                return None
+            # walk to a memory scan through schema-preserving nodes
+            node = n.child
+            while True:
+                kind = node.WhichOneof("node")
+                if kind == "filter":
+                    node = node.filter.child
+                elif kind == "coalesce_batches":
+                    node = node.coalesce_batches.child
+                elif kind == "memory_scan":
+                    break
+                else:
+                    return None
+            table = self.ctx.catalog.get(node.memory_scan.table_name)
+            if not isinstance(table, pa.Table):
+                return None
+            idx = group_exprs[0].index
+            if not 0 <= idx < table.num_columns:
+                return None
+            col = table.column(idx)
+            if not pa.types.is_integer(col.type) or col.null_count \
+                    or table.num_rows == 0:
+                return None
+            ckey = (node.memory_scan.table_name, idx)
+            cached = self.ctx._col_stats.get(ckey)
+            if cached is not None and cached[0] is table:
+                stats = cached[1]
+            else:
+                import pyarrow.compute as pc
+                mm = pc.min_max(col)
+                stats = (mm["min"].as_py(), mm["max"].as_py())
+                self.ctx._col_stats[ckey] = (table, stats)
+            lo, hi = stats
+            if lo is None or lo < 0:
+                return None
+            if hi + 1 > conf.get(cfg.KERNELS_MAX_KEY_DOMAIN):
+                return None
+            return int(hi) + 1
+        except Exception:
+            # stats derivation is advisory: a failure here never fails
+            # planning, since the general path is always correct
+            return None
+
+    def _plan_limit(self, n: pb.LimitNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.limit import LimitOp
+        return LimitOp(self.create_plan(n.child), n.limit)
+
+    def _plan_union(self, n: pb.UnionNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.limit import UnionOp
+        return UnionOp([self.create_plan(c) for c in n.children])
+
+    def _plan_coalesce_batches(self, n: pb.CoalesceBatchesNode
+                               ) -> PhysicalOp:
+        from auron_tpu_torch.ops.limit import CoalesceBatchesOp
+        return CoalesceBatchesOp(self.create_plan(n.child), n.target_rows)
+
+    def _plan_rename_columns(self, n: pb.RenameColumnsNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.limit import RenameColumnsOp
+        return RenameColumnsOp(self.create_plan(n.child), list(n.names))
+
+    # -- exchange -----------------------------------------------------------
+
+    def _parse_partitioning(self, p: pb.PartitioningP):
+        from auron_tpu_torch.parallel.partitioning import (
+            HashPartitioning, RoundRobinPartitioning, SinglePartitioning)
+        if p.kind == "hash":
+            return HashPartitioning(
+                tuple(serde.parse_expr(e) for e in p.hash_keys),
+                p.num_partitions)
+        if p.kind == "round_robin":
+            return RoundRobinPartitioning(p.num_partitions)
+        if p.kind == "single":
+            return SinglePartitioning()
+        raise NotImplementedError(f"partitioning {p.kind!r}")
+
+    def _plan_shuffle_writer(self, n: pb.ShuffleWriterNode) -> PhysicalOp:
+        from auron_tpu_torch.parallel.exchange import ShuffleExchangeOp
+        if n.rss_root:
+            raise NotImplementedError("shuffle writer to an RSS root")
+        return ShuffleExchangeOp(self.create_plan(n.child),
+                                 self._parse_partitioning(n.partitioning),
+                                 input_partitions=n.input_partitions or 1)
+
+
+def plan_from_bytes(data: bytes,
+                    ctx: Optional[PlannerContext] = None) -> PhysicalOp:
+    """Decode a serialized TaskDefinition and build its plan."""
+    return PhysicalPlanner(ctx).plan_task(pb.TaskDefinition.FromString(data))
+
+
+# ---------------------------------------------------------------------------
+# whole-stage fusion pass
+# ---------------------------------------------------------------------------
+
+def fuse_stages(op: PhysicalOp, config=None) -> PhysicalOp:
+    """Whole-stage fusion (ops/fused.py): greedily group maximal chains
+    of fusable row-local operators into FusedStageOp nodes, and push the
+    key/value projection of partial/complete aggregations below the agg
+    so its expression evaluation joins the chain. Stage breakers (agg,
+    exchange, scans) have no fragment, so a chain cannot cross them.
+    Gated on ``auron.fusion.enabled``; chain length is bounded by
+    ``auron.fusion.max_stage_ops``. The projection normalization runs
+    under both settings, so the two give the same plan below the aggs."""
+    conf = config if config is not None else cfg.get_config()
+    op = _normalize(op)
+    if not conf.get(cfg.FUSION_ENABLED):
+        return op
+    return _fuse(op, max(2, conf.get(cfg.FUSION_MAX_STAGE_OPS)))
+
+
+def _normalize(op: PhysicalOp) -> PhysicalOp:
+    op = _elide_agg_child_projection(op)
+    op = _push_agg_projection(op)
+    _replace_children(op, _normalize)
+    return op
+
+
+def _wrap_single(child: PhysicalOp) -> PhysicalOp:
+    """Wrap a lone computing fusable op under an exchange in a stage of
+    its own, as the reference does for its split program. Pass-through
+    ops (limit/rename) stay bare."""
+    from auron_tpu_torch.ops.fused import FusedStageOp
+    if child.fusable and child.fragment_computes \
+            and not isinstance(child, FusedStageOp):
+        return FusedStageOp([child])
+    return child
+
+
+def _fuse(op: PhysicalOp, max_ops: int) -> PhysicalOp:
+    from auron_tpu_torch.ops.fused import FusedStageOp
+    from auron_tpu_torch.parallel.exchange import ShuffleExchangeOp
+    if isinstance(op, ShuffleExchangeOp):
+        _replace_children(op, lambda c: _fuse(c, max_ops))
+        op.child = _wrap_single(op.child)
+        return op
+    if op.fusable:
+        # the maximal chain op → … → deepest fusable descendant
+        chain = [op]
+        while len(chain) < max_ops and chain[-1].children[0].fusable:
+            chain.append(chain[-1].children[0])
+        # recurse below the stage input, keeping the member links intact
+        _replace_children(chain[-1], lambda c: _fuse(c, max_ops))
+        if len(chain) >= 2 and any(m.fragment_computes for m in chain):
+            # a chain of pure pass-throughs (limit → rename) stays as is
+            return FusedStageOp(list(reversed(chain)))
+        return op
+    _replace_children(op, lambda c: _fuse(c, max_ops))
+    return op
+
+
+def _replace_children(op: PhysicalOp, fn) -> None:
+    """Apply ``fn`` to every direct child and swap the rewritten ops back
+    into the parent's attributes (operators hold children as plain
+    attributes: ``child``, ``inputs`` lists)."""
+    for name, val in list(vars(op).items()):
+        if isinstance(val, PhysicalOp):
+            setattr(op, name, fn(val))
+        elif isinstance(val, list) and val \
+                and all(isinstance(v, PhysicalOp) for v in val):
+            setattr(op, name, [fn(v) for v in val])
+
+
+def _elide_agg_child_projection(op: PhysicalOp) -> PhysicalOp:
+    """Drop a pure column-pick ProjectOp feeding a partial/complete
+    aggregation: when the agg's group/arg expressions are plain
+    ColumnRefs into a projection whose referenced outputs are plain
+    ColumnRefs themselves, the refs are remapped to the projection's
+    input. Values are untouched."""
+    from auron_tpu_torch.ops.agg import AggOp
+    from auron_tpu_torch.ops.project import ProjectOp
+    if not isinstance(op, AggOp) or op.mode not in ("partial", "complete"):
+        return op
+    child = op.children[0]
+    if not isinstance(child, ProjectOp):
+        return op
+    used = list(op.group_exprs) + [a.arg for a in op.aggs
+                                   if a.arg is not None]
+    if not used or not all(isinstance(e, eir.ColumnRef) for e in used):
+        return op
+    refs = {e.index for e in used}
+    if not all(0 <= i < len(child.exprs)
+               and isinstance(child.exprs[i], eir.ColumnRef)
+               for i in refs):
+        return op
+    remap = {i: child.exprs[i].index for i in refs}
+    new_groups = [eir.ColumnRef(remap[e.index]) for e in op.group_exprs]
+    new_aggs = [a if a.arg is None
+                else replace(a, arg=eir.ColumnRef(remap[a.arg.index]))
+                for a in op.aggs]
+    rewritten = AggOp(child.children[0], new_groups, new_aggs, mode=op.mode,
+                      group_names=op.group_names, agg_names=op.agg_names,
+                      initial_capacity=op.initial_capacity,
+                      key_domain=op.key_domain)
+    if rewritten.schema() != op.schema():
+        return op
+    # the child's child may itself be a pure projection: elide again
+    return _elide_agg_child_projection(rewritten)
+
+
+def _push_agg_projection(op: PhysicalOp) -> PhysicalOp:
+    """Pre-agg key/value projection: rewrite AggOp(group_exprs, aggs)
+    over arbitrary expressions into AggOp(ColumnRefs) over a ProjectOp
+    evaluating those expressions, so the projection fuses with the
+    chain below the agg. Only for partial/complete aggregations over a
+    fusable child; the rewrite is expression for expression."""
+    from auron_tpu_torch.ops.agg import AggOp
+    from auron_tpu_torch.ops.project import ProjectOp
+    if not isinstance(op, AggOp) or op.mode not in ("partial", "complete"):
+        return op
+    if not op.children[0].fusable:
+        # nothing below to fuse the projection into
+        return op
+    used = list(op.group_exprs) + [a.arg for a in op.aggs
+                                   if a.arg is not None]
+    if not used or all(isinstance(e, eir.ColumnRef) for e in used):
+        return op   # nothing to push down
+
+    proj_exprs: list = []
+    index_of: dict = {}
+
+    def col(e):
+        if e not in index_of:
+            index_of[e] = len(proj_exprs)
+            proj_exprs.append(e)
+        return eir.ColumnRef(index_of[e])
+
+    new_groups = [col(e) for e in op.group_exprs]
+    new_aggs = [a if a.arg is None else replace(a, arg=col(a.arg))
+                for a in op.aggs]
+    proj = ProjectOp(op.children[0], proj_exprs,
+                     [f"_pre{i}" for i in range(len(proj_exprs))])
+    rewritten = AggOp(proj, new_groups, new_aggs, mode=op.mode,
+                      group_names=op.group_names, agg_names=op.agg_names,
+                      initial_capacity=op.initial_capacity,
+                      key_domain=op.key_domain)
+    if rewritten.schema() != op.schema():
+        return op
+    return rewritten

@@ -255,6 +255,21 @@ class PhysicalOp:
     #: Read through ``yields_owned_batches``.
     owns_output = True
 
+    #: does this op implement the fragment protocol (ops/fused.py)? The
+    #: planner's fusion pass chains only fusable ops into a stage.
+    fusable: bool = False
+
+    #: does this op's fragment do real device work? Pass-through
+    #: fragments (limit's row-count rewrite, rename's identity) are
+    #: False: the fusion pass only makes stages holding at least one
+    #: computing member.
+    fragment_computes: bool = False
+
+    def build_kernel_fragment(self) -> Optional["object"]:
+        """This op's ``KernelFragment`` (ops/fused.py), or None when the
+        op cannot fuse. Implemented iff ``fusable`` is True."""
+        return None
+
     @property
     def children(self) -> list["PhysicalOp"]:
         return []

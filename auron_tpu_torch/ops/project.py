@@ -42,6 +42,18 @@ def _project(exprs: tuple, batch: DeviceBatch, in_schema: Schema,
                              for e in exprs), batch.num_rows)
 
 
+def _fragment(step):
+    """The fragment of an operator whose batch step is ``step(batch,
+    ectx)``: the carry (the row offset of row-numbering expressions,
+    which the port's evaluator does not have) passes through."""
+    from auron_tpu_torch.ops.fused import KernelFragment
+
+    def apply(batch, partition_id, carry):
+        return (step(batch, EvalContext(partition_id=partition_id)),), carry
+
+    return KernelFragment(apply=apply)
+
+
 def _stream(op, partition: int, ctx: ExecContext, step):
     """Run ``step(batch, ectx)`` over the child's batches, timed."""
     metrics = ctx.metrics_for(op)
@@ -61,6 +73,8 @@ def _stream(op, partition: int, ctx: ExecContext, step):
 
 class ProjectOp(PhysicalOp):
     name = "project"
+    fusable = True
+    fragment_computes = True
 
     def __init__(self, child: PhysicalOp, exprs: list[ir.Expr],
                  names: list[str]):
@@ -77,11 +91,15 @@ class ProjectOp(PhysicalOp):
     def schema(self) -> Schema:
         return self._schema
 
+    def _step(self, batch: DeviceBatch, ectx: EvalContext) -> DeviceBatch:
+        return _project(self.exprs, batch, self.child.schema(), ectx)
+
+    def build_kernel_fragment(self):
+        return _fragment(self._step)
+
     def execute(self, partition: int,
                 ctx: ExecContext) -> Iterator[DeviceBatch]:
-        in_schema = self.child.schema()
-        return _stream(self, partition, ctx, lambda b, ectx: _project(
-            self.exprs, b, in_schema, ectx))
+        return _stream(self, partition, ctx, self._step)
 
     def __repr__(self):
         return f"ProjectOp[{', '.join(self.names)}]"
@@ -89,6 +107,8 @@ class ProjectOp(PhysicalOp):
 
 class FilterOp(PhysicalOp):
     name = "filter"
+    fusable = True
+    fragment_computes = True
 
     def __init__(self, child: PhysicalOp, predicates: list[ir.Expr]):
         self.child = child
@@ -101,11 +121,16 @@ class FilterOp(PhysicalOp):
     def schema(self) -> Schema:
         return self.child.schema()
 
+    def _step(self, batch: DeviceBatch, ectx: EvalContext) -> DeviceBatch:
+        return compact(batch, _keep(self.predicates, batch,
+                                    self.child.schema(), ectx))
+
+    def build_kernel_fragment(self):
+        return _fragment(self._step)
+
     def execute(self, partition: int,
                 ctx: ExecContext) -> Iterator[DeviceBatch]:
-        in_schema = self.child.schema()
-        return _stream(self, partition, ctx, lambda b, ectx: compact(
-            b, _keep(self.predicates, b, in_schema, ectx)))
+        return _stream(self, partition, ctx, self._step)
 
     def __repr__(self):
         return f"FilterOp[{len(self.predicates)} predicates]"

@@ -65,12 +65,30 @@ p. TPC-DS SF10's store_sales, made on the machine by
    operators' recorded path, and for ``cuda_sum_count.launches`` rising
    by exactly the count the plan implies (0 for (a)); plan (a) on the
    card gives the CPU's key order and counts at scale 1. Then each is
-   timed (median of 5 queries after a warm-up), profiled once
+   timed (median of 3 queries after a warm-up), profiled once
    (torch.profiler: busy share, device launches, top items), and its
    host syncs counted (``ops.base.host_readback.syncs``, and PyTorch's
    sync debug mode's warnings). Where pyarrow imports, the 4 files are
    written under the checkout and plan (a) runs through
    ``ParquetScanOp`` too; where it does not, a line says so.
+
+The front end (``auron_tpu_torch.frontend``: Session → DataFrame →
+protobuf TaskDefinition → planner → collect), run after phase p:
+
+s. q01, q10, q11 and q13 of ``it/queries.py`` through
+   ``Session(device="cuda").read_parquet(files, partitions=4)`` over
+   phase p's 4 files, each checked against a numpy oracle on the
+   generated columns (keys, counts and integer sums identical, float
+   sums and means within 1e-12 of the group's sum of |v|); q01 also
+   against phase p's plan (a), row for row and in order, with the same
+   plan above the scan. Then ``store_quantity_dataframe`` over
+   ``Session.from_arrow`` of the same table: the planner must derive
+   ``key_domain = max(ss_store_sk) + 1`` and the AggOp take the dense
+   path. ``cuda_sum_count.launches`` must stay 0 across the phase: the
+   planner derives no dense domain for a float sum, as the reference's
+   does not. Each query is timed (median of 3 after the checked run),
+   profiled once (device activity only) and its host syncs per input
+   batch counted.
 
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
@@ -158,7 +176,9 @@ TABLE_ROWS, JOIN_KEYS = 1 << 20, 1 << 18
 #: SF10 has 28,800,991), in 4 partitions; the row-order check's scale
 PIPE_SCALE, PIPE_PARTITIONS, PIPE_ORDER_SCALE = 240, 4, 1
 #: timed queries per plan, after one warm-up
-PIPE_RUNS = 5
+PIPE_RUNS = 3
+#: timed queries per query of the Session phase, after the checked run
+SESSION_RUNS = 3
 #: the directory of the repo, under which the parquet run writes its files
 ROOT = Path(__file__).resolve().parent
 
@@ -706,17 +726,22 @@ def phase_hash_table(dev) -> dict:
 
 
 def device_profile(fn, iters: int = 20, top: int = 8,
-                   host_ops: bool = True) -> dict:
+                   host_ops: bool = True, warm: bool = False) -> dict:
     """Per call: wall ms, device ms summed over CUDA kernels, the busy
     share of the device, the device kernels and memsets launched, and
-    the kernels that took the most device time.
+    the kernels that took the most device time. The device events are
+    read from the trace's raw records: building the profiler's per-event
+    tables takes ~0.2 ms per launch, minutes for a query of 10^6
+    launches.
     The profiler's own cost is inside the wall time. Device numbers are
     None when the profiler saw no CUDA kernel. ``host_ops=False`` leaves
     the host's operators out of the trace, which keeps a trace of
-    ~10^5 launches cheap to record and to read."""
+    ~10^5 launches cheap to record and to read. ``warm=True`` skips the
+    warm-up call, for a caller that has just run ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
     if host_ops:
@@ -728,11 +753,12 @@ def device_profile(fn, iters: int = 20, top: int = 8,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     by_kernel, launched = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) \
-                + e.self_device_time_total / 1e3 / iters
-            launched += e.count
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation():
+            by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6 / iters
+            launched += 1
     device_ms = sum(by_kernel.values()) if by_kernel else None
     most = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -991,7 +1017,8 @@ def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
              batches: int, dev) -> dict:
     """One plan: a checked run with the launch and sync counters from 0,
     PIPE_RUNS timed queries after a warm-up, one profiled query, one
-    under PyTorch's sync debug mode."""
+    under PyTorch's sync debug mode. Returns the report and the checked
+    run's rows."""
     from auron_tpu_torch import entry as tentry
 
     def query(metrics=None):
@@ -1044,7 +1071,8 @@ def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
     ms = statistics.median(runs)
     steps["timed_s"] = time.perf_counter() - t_step
     t_step = time.perf_counter()
-    prof = device_profile(query, iters=1, top=10, host_ops=False)
+    prof = device_profile(query, iters=1, top=10, host_ops=False,
+                          warm=True)
     steps["profile_s"] = time.perf_counter() - t_step
     t_step = time.perf_counter()
     sync_warnings = count_sync_warnings(query)
@@ -1058,9 +1086,10 @@ def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
            "elapsed_compute_ms": elapsed,
            "peak_bytes": peak, "peak_above_inputs_bytes": peak - base,
            "max_err_share": worst, "profile": prof,
-           "groups": int(got["ss_store_sk"][0].size), "steps_s": steps}
+           "groups": int(got["ss_store_sk"][0].size), "steps_s": steps,
+           "plan": plan.tree_string()}
     log(f"pipeline {label}: {json.dumps(out)}")
-    return out
+    return out, got
 
 
 def pipeline_kernel_shape(cols: dict, domain: int, dev, rate: float
@@ -1100,8 +1129,12 @@ def pipeline_kernel_shape(cols: dict, domain: int, dev, rate: float
     return out
 
 
-def phase_pipeline(dev, seed: int, rate: float) -> dict:
-    """p. The q01 operator pipeline at SF10 on the card."""
+def phase_pipeline(dev, seed: int, rate: float, root: str
+                   ) -> tuple[dict, dict]:
+    """p. The q01 operator pipeline at SF10 on the card. Writes the 4
+    parquet files under ``root`` where pyarrow imports. Returns the
+    report and what phase s reads: the columns, the files (None without
+    pyarrow) and plan (a)'s rows and tree."""
     from auron_tpu_torch import entry as tentry
     from auron_tpu_torch.it import tpcds_data
     from auron_tpu_torch.utils.shapes import bucket_rows
@@ -1147,14 +1180,17 @@ def phase_pipeline(dev, seed: int, rate: float) -> dict:
            "upload_s": upload_s, "row_order_s": order_s,
            "input_bytes": sum(c.data.nbytes + c.validity.nbytes
                               for p in src for b in p for c in b.columns)}
-    out["sort"] = run_plan("(a) sort plan", lambda: src, None, oracle,
-                           F64_SUM_TOL, rows, batches, dev)
-    out["dense"] = run_plan("(b) dense plan", lambda: src, domain, oracle,
-                            F32_SUM_TOL, rows, batches, dev)
+    out["sort"], sort_rows = run_plan("(a) sort plan", lambda: src, None,
+                                      oracle, F64_SUM_TOL, rows, batches,
+                                      dev)
+    out["dense"], _ = run_plan("(b) dense plan", lambda: src, domain,
+                               oracle, F32_SUM_TOL, rows, batches, dev)
     out["kernel_shape"] = pipeline_kernel_shape(cols, domain, dev, rate)
     del src
     torch.cuda.empty_cache()
 
+    for_session = {"cols": cols, "files": None, "sort_rows": sort_rows,
+                   "sort_plan": out["sort"]["plan"], "batches": batches}
     try:
         import pyarrow  # noqa: F401
     except ImportError:
@@ -1163,19 +1199,237 @@ def phase_pipeline(dev, seed: int, rate: float) -> dict:
             "kernel)")
         out["parquet"] = None
         out["phase_s"] = time.perf_counter() - t_phase
-        return out
-    root = tempfile.mkdtemp(prefix=".chip_smoke_parquet_", dir=ROOT)
-    try:
-        t0 = time.perf_counter()
-        files = tpcds_data.write_store_sales(root, cols)
-        out["parquet_write_s"] = time.perf_counter() - t0
-        out["parquet"] = run_plan("(a) sort plan over parquet",
-                                  lambda: files, None, oracle, F64_SUM_TOL,
-                                  rows, batches, dev)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        return out, for_session
+    t0 = time.perf_counter()
+    files = tpcds_data.write_store_sales(root, cols)
+    out["parquet_write_s"] = time.perf_counter() - t0
+    out["parquet"], _ = run_plan("(a) sort plan over parquet",
+                                 lambda: files, None, oracle, F64_SUM_TOL,
+                                 rows, batches, dev)
+    for_session["files"] = files
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"pipeline phase: {out['phase_s']:.1f} s")
+    return out, for_session
+
+
+# ---------------------------------------------------------------------------
+# the front end: Session → DataFrame → TaskDefinition → planner → collect
+# ---------------------------------------------------------------------------
+
+def session_oracles(cols: dict) -> dict:
+    """The phase s queries in numpy over the generated columns: per query
+    ({column: values by ascending group key}, {float column: its bound's
+    scale}), the scale being the group's sum of |v|, over its rows for a
+    mean."""
+    from auron_tpu_torch.it import tpcds_data
+    k = cols["ss_store_sk"][0]
+    qty = cols["ss_quantity"][0]
+    price = cols["ss_sales_price"][0]
+    q01 = tpcds_data.q01_oracle(cols)
+    out = {"q01": ({c: q01[c] for c in ("ss_store_sk", "total",
+                                        "paid_cnt", "avg_profit")},
+                   {"total": q01["total_abs"],
+                    "avg_profit": q01["profit_abs"] / q01["rows"]})}
+    rows_q = np.bincount(qty)
+    qk = np.flatnonzero(rows_q)
+    n = rows_q[qk]
+    mean = np.bincount(qty, weights=price)[qk] / n
+    scale = np.bincount(qty, weights=np.abs(price))[qk] / n
+    having = n > 100
+    out["q10"] = ({"ss_quantity": qk[having], "n": n[having],
+                   "avg_price": mean[having]},
+                  {"avg_price": scale[having]})
+    # integer sums far below 2^53 are exact as float64 bincount weights
+    both = (price < 10.0) | (price > 250.0)
+    kb = k[both]
+    rows_b = np.bincount(kb)
+    sk = np.flatnonzero(rows_b)
+    out["q11"] = ({"ss_store_sk": sk,
+                   "qty": np.bincount(kb, weights=qty[both])[sk]
+                   .astype(np.int64),
+                   "n": rows_b[sk]}, {})
+    # distinct (store, customer) pairs by a sort: numpy 2.3's np.unique
+    # took 74 s over these 28.8 M keys on an H100's host, np.sort 0.44 s
+    pairs = np.sort(k * (1 << 32) + cols["ss_customer_sk"][0])
+    pairs = pairs[np.r_[True, pairs[1:] != pairs[:-1]]]
+    buyers = np.bincount(pairs >> 32)
+    bk = np.flatnonzero(buyers)
+    out["q13"] = ({"ss_store_sk": bk, "buyers": buyers[bk]}, {})
+    rows_s = np.bincount(k)
+    ak = np.flatnonzero(rows_s)
+    out["store_quantity"] = ({"ss_store_sk": ak, "n": rows_s[ak],
+                              "qty": np.bincount(k, weights=qty)[ak]
+                              .astype(np.int64)}, {})
+    return out
+
+
+def check_session_result(table, oracle, label: str) -> float:
+    """A collected Session result against its numpy oracle: the group
+    keys and every integer column identical, every float column within
+    1e-12 of its group's scale, and no nulls. Returns the largest error
+    as a share of its bound's scale."""
+    want, scales = oracle
+    key = next(iter(want))
+    keys = table[key].to_numpy()
+    order = np.argsort(keys, kind="stable")
+    check(table.num_rows == want[key].size,
+          f"{label}: {table.num_rows} groups, the oracle has "
+          f"{want[key].size}")
+    check(list(table.column_names) == list(want),
+          f"{label}: columns {table.column_names}")
+    worst = 0.0
+    for name, values in want.items():
+        check(table[name].null_count == 0, f"{label}: no null {name}")
+        got = table[name].to_numpy()[order]
+        if name not in scales:
+            check(np.array_equal(got, values),
+                  f"{label}: {name} identical to the oracle")
+            continue
+        rel = np.abs(got - values) / scales[name]
+        check(bool((rel <= F64_SUM_TOL).all()),
+              f"{label}: {name} within {F64_SUM_TOL} of the group's sum "
+              "of |v|")
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def run_session_query(label: str, make_df, oracle, rows: int) -> dict:
+    """One query through the Session: a checked run, which is also the
+    warm-up, with its host syncs counted (``host_readback`` and the hash
+    table's claim rounds), SESSION_RUNS timed queries, one profiled query
+    (device activity only)."""
+    df = make_df()
+    t0 = time.perf_counter()
+    tree = df.explain()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    log(f"session {label}, the plan:\n{tree.rstrip()}")
+    metrics = {}
+    torch.cuda.synchronize()
+    s0, (_r, h0) = host_readback.syncs, loop_counts()
+    t0 = time.perf_counter()
+    table = df.collect(metrics=metrics)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    # the operators' readbacks and the hash table's claim-round reads
+    hash_syncs = loop_counts()[1] - h0
+    syncs = host_readback.syncs - s0 + hash_syncs
+    worst = check_session_result(table, oracle, label)
+    scans = [m.snapshot() for name, m in metrics.items()
+             if name in ("parquet_scan", "memory_scan")]
+    batches = sum(sc["output_batches"] for sc in scans)
+    scanned = sum(sc["output_rows"] for sc in scans)
+    agg = metrics["agg"].snapshot()
+
+    def query():
+        return make_df().collect()
+
+    t_step = time.perf_counter()
+    runs = []
+    for _ in range(SESSION_RUNS):
+        t0 = time.perf_counter()
+        query()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(runs)
+    steps = {"timed_s": time.perf_counter() - t_step}
+    t_step = time.perf_counter()
+    prof = device_profile(query, iters=1, top=6, host_ops=False,
+                          warm=True)
+    steps["profile_s"] = time.perf_counter() - t_step
+    out = {"rows": rows, "scanned_rows": scanned, "input_batches": batches,
+           "plan_ms": plan_ms, "first_ms": first_ms, "ms": ms,
+           "runs_ms": runs, "rows_per_s": rows / (ms / 1e3),
+           "host_syncs": syncs, "host_syncs_hash_table": hash_syncs,
+           "host_syncs_per_batch": syncs / batches,
+           "groups": table.num_rows, "max_err_share": worst,
+           "agg_paths": {k: v for k, v in agg.items()
+                         if k.startswith("dispatch_")},
+           "profile": prof, "steps_s": steps, "plan": tree,
+           "table": table}
+    log(f"session {label}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "table"}))
+    return out
+
+
+def phase_session(dev, pipe: dict) -> dict:
+    """s. q01, q10, q11 and q13 through ``Session.read_parquet`` over
+    phase p's 4 files, and a query over ``Session.from_arrow`` of the
+    same table, on the card."""
+    import pyarrow as pa
+    from auron_tpu_torch import entry as tentry
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+
+    t_phase = time.perf_counter()
+    check(pipe["files"] is not None,
+          "the Session reads parquet: pyarrow imports")
+    cols = pipe["cols"]
+    rows = cols["ss_store_sk"][0].size
+    t0 = time.perf_counter()
+    oracles = session_oracles(cols)
+    oracle_s = time.perf_counter() - t0
+    tables = {"store_sales": pipe["files"]}
+    session = Session(device=dev)
+    queries = {"q01": tq.q01_dataframe, "q10": tq.q10_dataframe,
+               "q11": tq.q11_dataframe, "q13": tq.q13_dataframe}
+    out = {"rows": rows, "oracle_s": oracle_s}
+    gagg.cuda_sum_count.launches = 0
+    for name, fn in queries.items():
+        out[name] = run_session_query(
+            name, lambda fn=fn: fn(session, tables), oracles[name], rows)
+
+    # q01 through the Session is phase p's plan (a): the same operators
+    # above the scan, the same rows in the same order
+    got, want = out["q01"]["table"], pipe["sort_rows"]
+    for name in ("ss_store_sk", "paid_cnt"):
+        check(np.array_equal(got[name].to_numpy(), want[name][0]),
+              f"q01: {name} identical to phase p's plan (a), in order")
+    _, scales = oracles["q01"]
+    at = np.searchsorted(oracles["q01"][0]["ss_store_sk"],
+                         want["ss_store_sk"][0])
+    for name in ("total", "avg_profit"):
+        err = np.abs(got[name].to_numpy() - want[name][0])
+        check(bool((err <= F64_SUM_TOL * scales[name][at]).all()),
+              f"q01: {name} within {F64_SUM_TOL} of phase p's plan (a)")
+        out["q01"][f"{name}_bit_identical_to_plan_a"] = bool(
+            (err == 0).all())
+    above_scan = out["q01"]["plan"].splitlines()[:-1]
+    check(above_scan == pipe["sort_plan"].splitlines()[:-1],
+          "q01: the Session's plan is phase p's plan (a) above the scan")
+    check(out["q01"]["plan"] == tentry.q01_pipeline_plan(
+        pipe["files"], PIPE_PARTITIONS).tree_string(),
+        "q01: explain() equals the entry's parquet plan")
+
+    # the in-memory table: one partition, a complete AggOp straight over
+    # the memory scan, whose key domain the planner derives
+    t0 = time.perf_counter()
+    arrow = pa.table({name: pa.array(v, mask=None if ok.all() else ~ok)
+                      for name, (v, ok) in cols.items()})
+    out["arrow_table_s"] = time.perf_counter() - t0
+    plan = session.plan_physical(tq.store_quantity_dataframe(session, arrow))
+    domain = int(cols["ss_store_sk"][0].max()) + 1
+    check(plan.key_domain == domain,
+          f"from_arrow: the planner derived key_domain {plan.key_domain}, "
+          f"max(ss_store_sk) + 1 is {domain}")
+    out["store_quantity"] = run_session_query(
+        "store_quantity (from_arrow)",
+        lambda: tq.store_quantity_dataframe(session, arrow),
+        oracles["store_quantity"], rows)
+    paths = out["store_quantity"]["agg_paths"]
+    check(set(paths) == {"dispatch_cuda_dense"}
+          and paths["dispatch_cuda_dense"] == 1,
+          f"from_arrow: the AggOp took the dense path: {paths}")
+    out["key_domain"] = plan.key_domain
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    check(out["cuda_sum_count_launches"] == 0,
+          "no cuda_dense_sum_count launch on the Session path (the planner "
+          "derives no dense domain for a float sum)")
+    log(f"session: cuda_sum_count.launches = "
+        f"{out['cuda_sum_count_launches']} across the phase")
+    for name in ("q01", "q10", "q11", "q13", "store_quantity"):
+        del out[name]["table"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"session phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -1194,7 +1448,13 @@ def main() -> int:
     table = phase_hash_table(dev)
     name = torch.cuda.get_device_name(0)
     rate = mem_bytes_per_s(name)
-    pipeline = phase_pipeline(dev, args.seed, rate)
+    root = tempfile.mkdtemp(prefix=".chip_smoke_parquet_", dir=ROOT)
+    try:
+        pipeline, pipe = phase_pipeline(dev, args.seed, rate, root)
+        session = phase_session(dev, pipe)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del pipe
     per_size, other = phase_times(dev, stage, rate)
     prof = phase_profile(dev, stage)
     for row in per_size:
@@ -1215,7 +1475,8 @@ def main() -> int:
             "stage": launches,
             "pipeline_sort": pipeline["sort"]["cuda_sum_count_launches"],
             "pipeline_dense": pipeline["dense"][
-                "cuda_sum_count_launches"]},
+                "cuda_sum_count_launches"],
+            "session": session["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -1233,7 +1494,7 @@ def main() -> int:
             cmp["shapes"]["single_group"])[default],
     }
     report = {"build_s": build_s, "stages": other["stages"],
-              "pipeline": pipeline,
+              "pipeline": pipeline, "session": session,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

@@ -14,6 +14,7 @@ the row order are identical; float64 sums and averages agree within
 accumulate per batch in f32, within 1e-5 of it.
 """
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -40,7 +41,9 @@ from auron_tpu_torch.parallel.partitioning import HashPartitioning as THash
 
 REF = SimpleNamespace(ir=rir, Agg=RAgg, Mem=RMem, Shuffle=RShuffle,
                       Hash=RHash, Ctx=RCtx, cfg=rcfg, bridge=rbridge)
-PORT = SimpleNamespace(ir=tir, Agg=TAgg, Mem=TMem, Shuffle=TShuffle,
+PORT = SimpleNamespace(ir=tir, Agg=TAgg,
+                       Mem=functools.partial(TMem, device="cpu"),
+                       Shuffle=TShuffle,
                        Hash=THash, Ctx=TCtx, cfg=tcfg, bridge=tbridge)
 
 F64_TOL = 1e-12
@@ -369,7 +372,7 @@ def test_device_scan_takes_its_device_from_its_batches():
 
 def test_unported_aggregates_raise():
     schema = pa.schema([("k", pa.int64()), ("v", pa.int64())])
-    scan = TMem([[]], tbridge.schema_from_arrow(schema))
+    scan = TMem([[]], tbridge.schema_from_arrow(schema), device="cpu")
     for agg in (tir.AggFunction("collect_list", tir.ColumnRef(1)),
                 tir.AggFunction("sum", tir.ColumnRef(1), distinct=True),
                 tir.AggFunction("bloom_filter", tir.ColumnRef(1))):

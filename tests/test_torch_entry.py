@@ -264,7 +264,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "auron_tpu_torch.kernels._build, auron_tpu_torch.ops.agg, "
             "auron_tpu_torch.parallel.exchange, auron_tpu_torch.io.parquet, "
             "auron_tpu_torch.runtime.executor, "
-            "auron_tpu_torch.it.tpcds_data\nbad = sorted(m for m in "
+            "auron_tpu_torch.it.tpcds_data, auron_tpu_torch.ir.auron_pb2, "
+            "auron_tpu_torch.ir.serde, auron_tpu_torch.ir.planner, "
+            "auron_tpu_torch.frontend.session, "
+            "auron_tpu_torch.frontend.dataframe, auron_tpu_torch.ops.limit, "
+            "auron_tpu_torch.ops.fused, auron_tpu_torch.it.queries, "
+            "auron_tpu_torch.it.comparator, auron_tpu_torch.it.runner"
+            "\nbad = sorted(m for m in "
             "sys.modules if m.split('.')[0]"
             f" in {_FORBIDDEN!r})\nprint(bad)\nsys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -275,6 +281,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
     files = sorted((ROOT / "auron_tpu_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
+    assert ROOT / "auron_tpu_torch" / "ir" / "auron_pb2.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

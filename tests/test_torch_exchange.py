@@ -8,6 +8,8 @@ and negatives, on a float64 column with ±0.0 and NaN, and on an int32 +
 float32 pair; round-robin and single partitioning too.
 """
 
+import functools
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -86,7 +88,7 @@ def _same(g: pa.Table, w: pa.Table) -> bool:
 
 
 REF = (RMem, RShuffle, RCtx, rbridge)
-PORT = (TMem, TShuffle, TCtx, tbridge)
+PORT = (functools.partial(TMem, device="cpu"), TShuffle, TCtx, tbridge)
 
 
 def _hash(part, ir, cols):
@@ -121,7 +123,7 @@ def test_exchange_records_route_and_materializes_once(parts):
     side (one counts readback per input batch)."""
     from auron_tpu_torch.ops.base import host_readback
     scan = TMem(parts, tbridge.schema_from_arrow(parts[0][0].schema),
-                capacity=128)
+                capacity=128, device="cpu")
     ex = TShuffle(scan, tpart.HashPartitioning((tir.ColumnRef(0),), N_OUT),
                   input_partitions=len(parts))
     metrics = {}

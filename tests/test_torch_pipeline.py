@@ -19,6 +19,8 @@ parquet files, 12 stores, seed 42), with ``auron.scan.batch_rows =
   columns, and ``q01_oracle`` the reference's pandas oracle.
 """
 
+import functools
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -286,6 +288,7 @@ def test_filter_and_project_match_reference():
         return out
 
     want = run(rir, RT, RMem, rproj, RCtx, rbridge)
-    got = run(tir, TT, TMem, tproj, TCtx, tbridge)
+    got = run(tir, TT, functools.partial(TMem, device="cpu"), tproj,
+              TCtx, tbridge)
     assert got == want
     assert sum(len(rows) for rows in want[0][1]) > 50

@@ -1,0 +1,193 @@
+"""The port's protobuf IR and serde against the JAX package's, on the CPU.
+
+- expressions, aggregates, sort orders and schemas of the port's IR
+  round-trip through the port's messages and serialize to the same
+  bytes as the same trees in the reference's IR;
+- for q01, q10, q11, q13 (``it/queries.py``), the in-memory query
+  ``store_quantity_dataframe`` and a scan of two columns, the port
+  DataFrame's ``task_bytes()`` equals the reference DataFrame's byte for
+  byte;
+- reference bytes parse in the port and port bytes in the reference;
+- the port's messages are its own classes, not the reference's.
+"""
+
+from unittest import mock
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+
+from auron_tpu.columnar import schema as rschema
+from auron_tpu.exprs import ir as rir
+from auron_tpu.frontend import dataframe as rdf
+from auron_tpu.frontend.session import Session as RSession
+from auron_tpu.ir import auron_pb2 as rpb
+from auron_tpu.ir import serde as rserde
+from auron_tpu.it import queries as rqueries
+from auron_tpu.it import tpcds_data as rdata
+from auron_tpu_torch.columnar import schema as tschema
+from auron_tpu_torch.exprs import ir as tir
+from auron_tpu_torch.frontend import dataframe as tdf
+from auron_tpu_torch.frontend.session import Session as TSession
+from auron_tpu_torch.ir import auron_pb2 as tpb
+from auron_tpu_torch.ir import serde as tserde
+from auron_tpu_torch.it import queries as tqueries
+
+NAMES = ("q01", "q10", "q11", "q13", "store_quantity", "pruned")
+
+
+def _exprs(ir, DT):
+    """The same expression trees, built in either package's IR."""
+    C, L, B = ir.ColumnRef, ir.Literal, ir.BinaryExpr
+    return [
+        C(3, "ss_store_sk"), C(0),
+        L(5, DT.INT64), L(-7, DT.INT32), L(2.5, DT.FLOAT64),
+        L(True, DT.BOOL), L(None, DT.FLOAT64), L(None, DT.NULL),
+        L(123, DT.DECIMAL, 10, 2), L("CA", DT.STRING),
+        B(">", C(4), L(5, DT.INT64)),
+        B("and", B("<", C(5), L(10.0, DT.FLOAT64)),
+          ir.Not(ir.IsNull(C(7)))),
+        B("or", ir.IsNotNull(C(1)), B("==", B("+", C(2), C(3)),
+                                      B("%", C(0), L(3, DT.INT64)))),
+    ]
+
+
+def _aggs(ir):
+    C = ir.ColumnRef
+    return [ir.AggFunction("sum", C(5)), ir.AggFunction("count", C(7)),
+            ir.AggFunction("avg", C(6)), ir.AggFunction("count_star"),
+            ir.AggFunction("min", C(1), True),
+            ir.AggFunction("max", C(2), False, 100, 0.01)]
+
+
+def _schema(S):
+    DT = S.DataType
+    return S.Schema((S.Field("a", DT.INT64, False),
+                     S.Field("b", DT.FLOAT64),
+                     S.Field("d", DT.DECIMAL, True, 12, 3),
+                     S.Field("l", DT.LIST, True, elem=DT.INT32),
+                     S.Field("m", DT.MAP, True, elem=DT.FLOAT64,
+                             key=DT.INT64),
+                     S.Field("s", DT.STRUCT, True, children=(
+                         S.Field("x", DT.INT32), S.Field("y", DT.STRING)))))
+
+
+@pytest.mark.parametrize("i", range(13))
+def test_expression_round_trip_and_bytes(i):
+    got = _exprs(tir, tschema.DataType)[i]
+    want = _exprs(rir, rschema.DataType)[i]
+    data = tserde.expr_to_proto(got).SerializeToString()
+    assert data == rserde.expr_to_proto(want).SerializeToString()
+    assert tserde.parse_expr(tpb.ExprNode.FromString(data)) == got
+    assert repr(rserde.parse_expr(rpb.ExprNode.FromString(data))) == \
+        repr(want)
+
+
+def test_aggregates_and_sort_orders_round_trip():
+    for got, want in zip(_aggs(tir), _aggs(rir)):
+        data = tserde.agg_to_proto(got).SerializeToString()
+        assert data == rserde.agg_to_proto(want).SerializeToString()
+        assert tserde.parse_agg(tpb.AggFunctionP.FromString(data)) == got
+    for asc, nf in ((True, True), (False, False), (True, False)):
+        o = tir.SortOrder(tir.ColumnRef(2, "k"), asc, nf)
+        data = tserde.sort_order_to_proto(o).SerializeToString()
+        assert data == rserde.sort_order_to_proto(rir.SortOrder(
+            rir.ColumnRef(2, "k"), asc, nf)).SerializeToString()
+        assert tserde.parse_sort_order(tpb.SortOrderP.FromString(data)) == o
+
+
+def test_schema_round_trip():
+    got, want = _schema(tschema), _schema(rschema)
+    data = tserde.schema_to_proto(got).SerializeToString()
+    assert data == rserde.schema_to_proto(want).SerializeToString()
+    assert tserde.parse_schema(tpb.SchemaP.FromString(data)) == got
+
+
+def test_unported_expressions_raise_naming_the_node():
+    cast = rir.Cast(rir.ColumnRef(0), rschema.DataType.FLOAT64)
+    node = tpb.ExprNode.FromString(
+        rserde.expr_to_proto(cast).SerializeToString())
+    with pytest.raises(NotImplementedError, match="cast"):
+        tserde.parse_expr(node)
+    with pytest.raises(NotImplementedError, match="negative"):
+        tserde.parse_expr(tpb.ExprNode(unary=tpb.UnaryE(
+            op="negative", child=tserde.expr_to_proto(tir.ColumnRef(0)))))
+    with pytest.raises(NotImplementedError, match="SortOrder"):
+        tserde.expr_to_proto(tir.SortOrder(tir.ColumnRef(0)))
+
+
+def test_port_messages_are_its_own():
+    assert tpb.PlanNode is not rpb.PlanNode
+    assert tpb.DESCRIPTOR.package == "auron_tpu_torch.ir"
+    assert [m for m in tpb.DESCRIPTOR.message_types_by_name] == \
+        [m for m in rpb.DESCRIPTOR.message_types_by_name]
+
+
+def _pruned(session, tables, dsl):
+    """Two of the file's columns, in another order, over 2 partitions."""
+    return (session.read_parquet(tables["store_sales"],
+                                 columns=["ss_quantity", "ss_store_sk"],
+                                 partitions=2)
+            .filter(dsl.col("ss_quantity") > 3)
+            .group_by("ss_store_sk")
+            .agg(dsl.functions.max(dsl.col("ss_quantity")).alias("top")))
+
+
+@pytest.fixture(scope="module")
+def task_bytes(tmp_path_factory):
+    """Each query's task bytes from both packages' DataFrames."""
+    root = str(tmp_path_factory.mktemp("tpcds"))
+    tables = {"store_sales": rdata.generate(root, 0.05, 42)["store_sales"]}
+    table = pa.concat_tables(pq.read_table(f) for f in tables["store_sales"])
+    rs, ts = RSession(), TSession(device="cpu")
+    F = rdf.functions
+    with mock.patch.object(rdf.DataFrame, "collect",
+                           lambda self, *a, **k: self):
+        ref = {"q01": rqueries.q01_dataframe(rs, tables),
+               "q10": rqueries._q10_run(rs, tables),
+               "q11": rqueries._q11_run(rs, tables),
+               "q13": rqueries._q13_run(rs, tables),
+               "store_quantity": rs.from_arrow(table)
+               .group_by("ss_store_sk")
+               .agg(F.count_star().alias("n"),
+                    F.sum(rdf.col("ss_quantity")).alias("qty")),
+               "pruned": _pruned(rs, tables, rdf)}
+    port = {"q01": tqueries.q01_dataframe(ts, tables),
+            "q10": tqueries.q10_dataframe(ts, tables),
+            "q11": tqueries.q11_dataframe(ts, tables),
+            "q13": tqueries.q13_dataframe(ts, tables),
+            "store_quantity": tqueries.store_quantity_dataframe(ts, table),
+            "pruned": _pruned(ts, tables, tdf)}
+    return {n: (port[n].task_bytes(), ref[n].task_bytes(),
+                port[n], ref[n]) for n in NAMES}
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_task_bytes_equal_reference(name, task_bytes):
+    got, want, port_df, ref_df = task_bytes[name]
+    assert got == want
+    assert port_df.num_partitions == ref_df.num_partitions
+    assert [(f.name, f.dtype.value, f.nullable) for f in port_df.schema] \
+        == [(f.name, f.dtype.value, f.nullable) for f in ref_df.schema]
+    for pid in (1, 3):
+        assert port_df.task_bytes(pid) == ref_df.task_bytes(pid)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_bytes_parse_across_packages(name, task_bytes):
+    got, want, _t, _r = task_bytes[name]
+    t = tpb.TaskDefinition.FromString(want)
+    r = rpb.TaskDefinition.FromString(got)
+    assert t.SerializeToString() == want and r.SerializeToString() == got
+    assert t.num_partitions == r.num_partitions
+    assert t.plan.WhichOneof("node") == r.plan.WhichOneof("node")
+
+
+def test_distinct_aggregates_raise():
+    ts = TSession(device="cpu")
+    table = pa.table({"k": pa.array(np.arange(4)), "v": pa.array([1] * 4)})
+    df = ts.from_arrow(table).group_by("k")
+    from auron_tpu_torch.frontend.dataframe import col, functions as F
+    with pytest.raises(NotImplementedError, match="DISTINCT"):
+        df.agg(F.count(col("v"), distinct=True))

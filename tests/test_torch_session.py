@@ -1,0 +1,188 @@
+"""The port's Session against the JAX package's, on the CPU.
+
+Scale 1 of the TPC-DS-class dataset (120,000 store_sales rows in 4
+parquet files, 12 stores, seed 42), ``auron.scan.batch_rows = 8192`` in
+both packages. q01, q10, q11 and q13 (``it/queries.py``) and the
+in-memory query ``store_quantity_dataframe`` run through
+``Session(device="cpu")`` → DataFrame → TaskDefinition bytes → planner
+→ ``collect``:
+
+- the port returns the reference Session's rows in the same order: keys,
+  counts and integer sums identical, float64 sums within 1e-12 of the
+  group's sum of |v| (means within that over the group's rows);
+- both results agree with the pandas oracle under the port's
+  ``QueryResultComparator``;
+- a Session or an Arrow scan built without a device raises where CUDA is
+  absent.
+"""
+
+from unittest import mock
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+from auron_tpu import config as rcfg
+from auron_tpu.frontend import dataframe as rdf
+from auron_tpu.frontend.session import Session as RSession
+from auron_tpu.it import queries as rqueries
+from auron_tpu.it import tpcds_data as rdata
+from auron_tpu_torch import config as tcfg
+from auron_tpu_torch.frontend.session import Session as TSession
+from auron_tpu_torch.it import queries as tqueries
+from auron_tpu_torch.it.comparator import QueryResultComparator
+from auron_tpu_torch.it.runner import run_query
+
+SCALE, SEED, BATCH_ROWS = 1.0, 42, 1 << 17
+F64_TOL = 1e-12
+NAMES = ("q01", "q10", "q11", "q13", "store_quantity")
+#: per query: its group key, and each float column with the column of
+#: store_sales whose |v| sets its bound (and whether it is a mean)
+FLOATS = {"q01": ("ss_store_sk", {"total": ("ss_sales_price", False),
+                                  "avg_profit": ("ss_net_profit", True)}),
+          "q10": ("ss_quantity", {"avg_price": ("ss_sales_price", True)}),
+          "q11": ("ss_store_sk", {}), "q13": ("ss_store_sk", {}),
+          "store_quantity": ("ss_store_sk", {})}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The queries run many small torch ops. Where test workers share
+    the CPU, torch's intra-op threads oversubscribe it (four workers ran
+    this module's port queries ~30x slower than one), so the module runs
+    on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _ref_dataframes(session, tables, table) -> dict:
+    """The reference's own query functions, their ``collect`` replaced by
+    the DataFrame itself, and the in-memory query in its DSL."""
+    F = rdf.functions
+    with mock.patch.object(rdf.DataFrame, "collect",
+                           lambda self, *a, **k: self):
+        return {"q01": rqueries.q01_dataframe(session, tables),
+                "q10": rqueries._q10_run(session, tables),
+                "q11": rqueries._q11_run(session, tables),
+                "q13": rqueries._q13_run(session, tables),
+                "store_quantity": session.from_arrow(table)
+                .group_by("ss_store_sk")
+                .agg(F.count_star().alias("n"),
+                     F.sum(rdf.col("ss_quantity")).alias("qty"))}
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tpcds"))
+    tables = {"store_sales": rdata.generate(root, SCALE, SEED)["store_sales"]}
+    table = pa.concat_tables(pq.read_table(f) for f in tables["store_sales"])
+    return tables, table, table.to_pandas()
+
+
+@pytest.fixture(scope="module")
+def ref(data):
+    """The reference Session's results, once."""
+    tables, table, _pdf = data
+    session = RSession(config=rcfg.AuronConfig(
+        {rcfg.SCAN_BATCH_ROWS: BATCH_ROWS}))
+    dfs = _ref_dataframes(session, tables, table)
+    return {name: dfs[name].collect() for name in NAMES}
+
+
+def _port_dataframes(session, tables, table) -> dict:
+    return {"q01": tqueries.q01_dataframe(session, tables),
+            "q10": tqueries.q10_dataframe(session, tables),
+            "q11": tqueries.q11_dataframe(session, tables),
+            "q13": tqueries.q13_dataframe(session, tables),
+            "store_quantity": tqueries.store_quantity_dataframe(session,
+                                                                table)}
+
+
+@pytest.fixture(scope="module")
+def port(data):
+    tables, table, _pdf = data
+    session = TSession(config=tcfg.AuronConfig(
+        {tcfg.SCAN_BATCH_ROWS: BATCH_ROWS}), device="cpu")
+    dfs = _port_dataframes(session, tables, table)
+    return {name: dfs[name].collect() for name in NAMES}
+
+
+def _abs_sums(pdf, key: str, column: str, keys: np.ndarray, mean: bool):
+    g = pdf.assign(_a=pdf[column].abs()).groupby(key)["_a"]
+    scale = g.sum().reindex(keys).to_numpy()
+    if mean:
+        scale = scale / pdf.groupby(key).size().reindex(keys).to_numpy()
+    return scale
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_rows_equal_reference_session_in_order(name, ref, port, data):
+    got, want = port[name], ref[name]
+    assert got.schema == want.schema
+    assert got.num_rows == want.num_rows > 0
+    key, floats = FLOATS[name]
+    keys = want[key].to_numpy()
+    pdf = data[2]
+    if name == "q13":
+        assert len(keys) == pdf.ss_store_sk.nunique() >= 12
+    for col in want.column_names:
+        assert got[col].null_count == want[col].null_count, col
+        if col not in floats:
+            assert got[col].equals(want[col]), col
+            continue
+        source, mean = floats[col]
+        bound = F64_TOL * _abs_sums(pdf, key, source, keys, mean)
+        err = np.abs(got[col].to_numpy() - want[col].to_numpy())
+        assert (err <= bound).all(), col
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_both_sessions_match_the_pandas_oracle(name, ref, port, data):
+    oracles = {q.name.split("_")[0]: q for q in tqueries.QUERIES}
+    pd_tables = {"store_sales": data[2]}
+    if name == "store_quantity":
+        expected = pa.Table.from_pandas(
+            tqueries._store_quantity_oracle(pd_tables).reset_index(
+                drop=True), preserve_index=False)
+    else:
+        expected = oracles[name].expected(pd_tables)
+    comparator = QueryResultComparator()
+    for side in (port, ref):
+        res = comparator.compare(name, side[name], expected)
+        assert res.ok, res.report()
+
+
+def test_run_query_passes_every_query(data):
+    tables, _table, pdf = data
+    for q in tqueries.QUERIES:
+        res = run_query(q, tables, {"store_sales": pdf}, device="cpu")
+        assert res.ok, res.report()
+
+
+def test_fusion_off_gives_the_same_rows(data, port):
+    tables, table, _pdf = data
+    conf = tcfg.AuronConfig({tcfg.SCAN_BATCH_ROWS: BATCH_ROWS,
+                             tcfg.FUSION_ENABLED: False})
+    session = TSession(config=conf, device="cpu")
+    got = tqueries.q11_dataframe(session, tables).collect()
+    assert "FusedStageOp" not in tqueries.q11_dataframe(
+        session, tables).explain()
+    assert got.equals(port["q11"])
+
+
+def test_entry_points_without_a_device_raise_without_cuda(data,
+                                                         monkeypatch):
+    from auron_tpu_torch.columnar.arrow_bridge import schema_from_arrow
+    from auron_tpu_torch.io.parquet import MemoryScanOp, ParquetScanOp
+    tables, table, _pdf = data
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TSession()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParquetScanOp(tables["store_sales"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MemoryScanOp([table.to_batches()], schema_from_arrow(table.schema))
