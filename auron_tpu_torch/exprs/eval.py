@@ -2,11 +2,13 @@
 
 The port of ``auron_tpu.exprs.eval`` for the nodes in ``exprs/ir.py``:
 column references, literals, binary arithmetic and comparisons with
-numeric promotion, Kleene ``and``/``or``, ``not``, ``is null`` and
-``is not null``. Null semantics follow Spark/SQL: arithmetic and
-comparisons propagate null, ``x / 0`` and ``x % 0`` are null, and
-``and``/``or`` are three-valued. Every other node raises
-``NotImplementedError`` naming it.
+numeric promotion, Kleene ``and``/``or``, ``not``, ``is null``,
+``is not null`` and casts between bool, integer and float types. Null
+semantics follow Spark/SQL: arithmetic and comparisons propagate null,
+``x / 0`` and ``x % 0`` are null, ``and``/``or`` are three-valued, and a
+float cast to an integer is null where it is NaN, infinite or out of
+range. Every other node, and a cast from or to a string, decimal or
+date, raises ``NotImplementedError`` naming it.
 
 Each node becomes a few elementwise tensor ops on the batch's device;
 nothing reads a value back to the host.
@@ -130,6 +132,11 @@ def evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
                                        device=batch.device)),
             DataType.BOOL)
 
+    if isinstance(expr, ir.Cast):
+        # ``safe`` (TryCast) changes nothing here: the ported casts
+        # fail only to null
+        return cast_value(evaluate(expr.child, batch, schema), expr.dtype)
+
     raise NotImplementedError(f"expression {type(expr).__name__}")
 
 
@@ -150,6 +157,8 @@ def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
         return common_type(lt, rt), 0, 0
     if isinstance(expr, (ir.Not, ir.IsNull, ir.IsNotNull)):
         return DataType.BOOL, 0, 0
+    if isinstance(expr, ir.Cast):
+        return expr.dtype, expr.precision, expr.scale
     raise NotImplementedError(f"infer_dtype for {type(expr).__name__}")
 
 
@@ -249,7 +258,9 @@ def cast_value(v: TypedValue, dtype: DataType) -> TypedValue:
     if v.dtype == dtype:
         return v
     if v.dtype not in _NUMERIC_CAST or dtype not in _NUMERIC_CAST:
-        raise NotImplementedError(f"cast {v.dtype} -> {dtype}")
+        raise NotImplementedError(
+            f"cast {v.dtype.value} -> {dtype.value}: the port casts "
+            "between bool, integer and float types only")
     validity = v.validity
     d = v.data
 

@@ -72,6 +72,20 @@ class IsNotNull(Expr):
 
 
 @dataclass(frozen=True)
+class Cast(Expr):
+    child: Expr
+    dtype: DataType
+    precision: int = 0
+    scale: int = 0
+    # try_cast: null on failure instead of error (reference: TryCast,
+    # datafusion-ext-exprs/src/cast.rs)
+    safe: bool = True
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
 class SortOrder:
     expr: Expr
     ascending: bool = True

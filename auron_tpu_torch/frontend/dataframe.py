@@ -4,9 +4,9 @@ The port of ``auron_tpu.frontend.dataframe`` for the expressions and
 transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
-query; what the port cannot plan yet (casts, IN lists, string
-predicates, scalar functions, DISTINCT aggregates, sorts, joins,
-windows, host functions) raises ``NotImplementedError`` or is absent.
+query; what the port cannot plan yet (IN lists, string predicates,
+scalar functions, DISTINCT aggregates, joins, windows, host functions)
+raises ``NotImplementedError`` or is absent.
 """
 
 from __future__ import annotations
@@ -59,11 +59,21 @@ class Col:
     def alias(self, name: str) -> "Col":
         return Col(self.node, name)
 
+    def cast(self, dtype: DataType, precision: int = 0,
+             scale: int = 0) -> "Col":
+        return Col(("cast", self, dtype, precision, scale), self.name)
+
     def is_null(self) -> "Col":
         return Col(("is_null", self))
 
     def is_not_null(self) -> "Col":
         return Col(("is_not_null", self))
+
+    def asc(self, nulls_first: bool = True) -> "SortCol":
+        return SortCol(self, True, nulls_first)
+
+    def desc(self, nulls_first: bool = False) -> "SortCol":
+        return SortCol(self, False, nulls_first)
 
     def out_name(self, default: str = "col") -> str:
         if self.name:
@@ -71,6 +81,13 @@ class Col:
         if isinstance(self.node, str):
             return self.node
         return default
+
+
+@dataclass(frozen=True)
+class SortCol:
+    col: Col
+    ascending: bool = True
+    nulls_first: bool = True
 
 
 @dataclass(frozen=True)
@@ -135,6 +152,9 @@ def resolve(c: Col, schema: Schema) -> ir.Expr:
         return ir.BinaryExpr(op, resolve(left, schema), resolve(right, schema))
     if tag in _UNARY:
         return _UNARY[tag](resolve(n[1], schema))
+    if tag == "cast":
+        _, child, dtype, p, s = n
+        return ir.Cast(resolve(child, schema), dtype, p, s)
     raise NotImplementedError(f"cannot resolve column node {tag!r}")
 
 
@@ -283,6 +303,50 @@ class DataFrame:
     def group_by(self, *keys: Union[str, Col]) -> GroupedData:
         return GroupedData(self, [col(k) if isinstance(k, str) else k
                                   for k in keys])
+
+    def _to_sort_orders(self, orders) -> list[ir.SortOrder]:
+        """str/Col/SortCol → resolved ir.SortOrder; a bare column sorts
+        ascending, nulls first."""
+        sos = []
+        for o in orders:
+            if isinstance(o, str):
+                o = col(o).asc()
+            elif isinstance(o, Col):
+                o = o.asc()
+            sos.append(ir.SortOrder(resolve(o.col, self.schema),
+                                    o.ascending, o.nulls_first))
+        return sos
+
+    def sort(self, *orders: Union[str, Col, SortCol],
+             limit: Optional[int] = None) -> "DataFrame":
+        """A global sort, or its first ``limit`` rows. Over several
+        partitions a top-k runs a map-side SortNode(fetch=limit) on every
+        partition, so only n_part * limit rows cross the single-partition
+        exchange, then the final top-k; a full sort range-exchanges first,
+        so the partitions' sorted runs concatenate in global order."""
+        so_protos = [serde.sort_order_to_proto(s)
+                     for s in self._to_sort_orders(orders)]
+        child = self.plan
+        out_partitions = self.num_partitions
+        if self.num_partitions > 1:
+            if limit is not None:
+                child = pb.PlanNode(sort=pb.SortNode(
+                    child=child, sort_orders=so_protos, fetch=limit))
+                part = pb.PartitioningP(kind="single", num_partitions=1)
+                out_partitions = 1
+            else:
+                part = pb.PartitioningP(kind="range",
+                                        num_partitions=self.num_partitions,
+                                        range_orders=so_protos)
+            child = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
+                child=child, partitioning=part,
+                input_partitions=self.num_partitions))
+        node = pb.PlanNode(sort=pb.SortNode(
+            child=child, sort_orders=so_protos,
+            fetch=-1 if limit is None else limit))
+        return DataFrame(self.session, node, self.schema, out_partitions)
+
+    order_by = sort
 
     def limit(self, n: int) -> "DataFrame":
         child = self.plan

@@ -44,8 +44,9 @@ class HashTableOverflow(Exception):
     any sane capacity; the caller falls back to the sort path."""
 
 
-def _hashes(keys, n: int) -> torch.Tensor:
-    return core.remap_hashes(hashing.xxhash64_columns(list(keys), n))
+def _hashes(keys, n: int, device=None) -> torch.Tensor:
+    return core.remap_hashes(hashing.xxhash64_columns(list(keys), n,
+                                                      device=device))
 
 
 def _agg_step_kernel(key_meta: tuple, acc_meta: tuple, rounds: int,
@@ -54,7 +55,7 @@ def _agg_step_kernel(key_meta: tuple, acc_meta: tuple, rounds: int,
     """One batch: hash + insert + store winners + scatter accumulator
     contributions. Returns the new state and (n_new, overflow) as device
     scalars; the state passed in is not changed."""
-    h = _hashes(keys, live.shape[0])
+    h = _hashes(keys, live.shape[0], live.device)
     w = core.key_words(keys, key_meta)
     claims, slot, resolved = core.insert_loop(th, tw, h, w, live, rounds)
     th2, tw2 = core.table_install(th, tw, h, w, claims)
@@ -153,12 +154,11 @@ class HashAggState:
 
     # -- state transitions ---------------------------------------------------
 
-    def _init_arrays(self, keys, contribs) -> None:
+    def _init_arrays(self, keys, contribs, dev: torch.device) -> None:
         self.key_meta = core.key_meta(keys)
         self.acc_meta = tuple(
             (kind, core.dtype_name(v.dtype))
             for kind, v in zip(self.kinds, contribs))
-        dev = keys[0].data.device
         self.th = torch.full((self.cap,), core.EMPTY, dtype=torch.int64,
                              device=dev)
         self.tw = torch.zeros((core.total_words(self.key_meta), self.cap),
@@ -191,7 +191,7 @@ class HashAggState:
         keys = tuple(keys)
         contribs = tuple(contribs)
         if not self.built:
-            self._init_arrays(keys, contribs)
+            self._init_arrays(keys, contribs, live.device)
         _check_meta(core.key_meta(keys), self.key_meta)
         n = int(live.shape[0])
         while True:
@@ -245,7 +245,7 @@ def grouped_agg_once(keys, contribs, kinds, live, capacity: int,
     keys = tuple(keys)
     meta = core.key_meta(keys)
     dev = live.device
-    h = _hashes(keys, live.shape[0])
+    h = _hashes(keys, live.shape[0], live.device)
     w = core.key_words(keys, meta)
     th = torch.full((capacity,), core.EMPTY, dtype=torch.int64, device=dev)
     tw = torch.zeros((core.total_words(meta), capacity), dtype=torch.int64,

@@ -49,6 +49,7 @@ import torch
 
 from auron_tpu_torch.columnar.batch import PrimitiveColumn
 from auron_tpu_torch.ops.hashing import canonicalize_float
+from auron_tpu_torch.utils.float_order import scatter_min_max
 
 #: empty-slot sentinel: the uint64 maximum, as int64 bits. It is the
 #: agg path's hash sentinel, so exported tables keep dead slots last.
@@ -407,9 +408,8 @@ def agg_update(accs: tuple, auxs: tuple, acc_meta: tuple,
             # contributions already carry the reduce neutral where the
             # row's value is invalid; masked rows carry it too
             neutral = neutral_like(kind, v.dtype).item()
-            out_accs.append(acc.clone().scatter_reduce_(
-                0, pos, torch.where(mask, v, neutral),
-                "amin" if kind == "min" else "amax"))
+            out_accs.append(scatter_min_max(
+                acc, pos, torch.where(mask, v, neutral), kind))
             out_auxs.append(None)
         elif kind == "or":
             hits = torch.zeros(cap, dtype=torch.int32,

@@ -25,7 +25,7 @@ def _build_kernel(key_meta: tuple, rounds: int, th, tw, store, keys, live):
     """Insert one batch's keys: the new (th, tw, store), each row's slot
     and is-new flag, the count of new keys and the overflow flag."""
     n = live.shape[0]
-    h = _hashes(keys, n)
+    h = _hashes(keys, n, live.device)
     w = core.key_words(keys, key_meta)
     claims, slot, resolved = core.insert_loop(th, tw, h, w, live, rounds)
     th2, tw2 = core.table_install(th, tw, h, w, claims)
@@ -38,7 +38,7 @@ def _build_kernel(key_meta: tuple, rounds: int, th, tw, store, keys, live):
 
 
 def _probe_kernel(key_meta: tuple, rounds: int, th, tw, keys, live):
-    h = _hashes(keys, live.shape[0])
+    h = _hashes(keys, live.shape[0], live.device)
     w = core.key_words(keys, key_meta)
     return core.probe_loop(th, tw, h, w, live, rounds)
 
@@ -79,9 +79,8 @@ class DeviceHashTable:
         #: consume and clear it
         self.last_remap = None
 
-    def _init_arrays(self, keys) -> None:
+    def _init_arrays(self, keys, dev: torch.device) -> None:
         self.key_meta = core.key_meta(keys)
-        dev = keys[0].data.device
         self.th = torch.full((self.cap,), core.EMPTY, dtype=torch.int64,
                              device=dev)
         self.tw = torch.zeros((core.total_words(self.key_meta), self.cap),
@@ -109,7 +108,7 @@ class DeviceHashTable:
         """Insert live rows' keys; returns (slot[n], is_new[n])."""
         keys = tuple(keys)
         if self.key_meta is None:
-            self._init_arrays(keys)
+            self._init_arrays(keys, live.device)
         _check_meta(core.key_meta(keys), self.key_meta)
         while True:
             th, tw, store, slot, is_new, n_new, ovf = _build_kernel(

@@ -2,9 +2,10 @@
 
 The port of ``auron_tpu.ir.planner`` for the nodes the port has
 operators for: the parquet, memory and empty-partitions scans, filter,
-project, agg, limit, union, coalesce, rename and the shuffle writer on
-its host route. Every other node raises ``NotImplementedError`` naming
-it. Scans run on the context's device.
+project, agg, sort, limit, union, coalesce, rename and the shuffle
+writer (hash, round-robin, single and range) on its host route. Every
+other node raises ``NotImplementedError`` naming it. Scans run on the
+context's device.
 
 After planning, ``fuse_stages`` chains row-local operators into
 ``FusedStageOp``s as the reference's pass does. Two of the reference's
@@ -237,6 +238,14 @@ class PhysicalPlanner:
             # planning, since the general path is always correct
             return None
 
+    def _plan_sort(self, n: pb.SortNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.sort import SortOp
+        # proto3 leaves an unset fetch at 0; a 0-row top-k is
+        # meaningless, so any fetch <= 0 means "no limit"
+        return SortOp(self.create_plan(n.child),
+                      [serde.parse_sort_order(o) for o in n.sort_orders],
+                      fetch=None if n.fetch <= 0 else n.fetch)
+
     def _plan_limit(self, n: pb.LimitNode) -> PhysicalOp:
         from auron_tpu_torch.ops.limit import LimitOp
         return LimitOp(self.create_plan(n.child), n.limit)
@@ -258,7 +267,8 @@ class PhysicalPlanner:
 
     def _parse_partitioning(self, p: pb.PartitioningP):
         from auron_tpu_torch.parallel.partitioning import (
-            HashPartitioning, RoundRobinPartitioning, SinglePartitioning)
+            HashPartitioning, RangePartitioning, RoundRobinPartitioning,
+            SinglePartitioning)
         if p.kind == "hash":
             return HashPartitioning(
                 tuple(serde.parse_expr(e) for e in p.hash_keys),
@@ -267,6 +277,11 @@ class PhysicalPlanner:
             return RoundRobinPartitioning(p.num_partitions)
         if p.kind == "single":
             return SinglePartitioning()
+        if p.kind == "range":
+            # bounds are sampled at execution time by the exchange
+            return RangePartitioning(
+                tuple(serde.parse_sort_order(o) for o in p.range_orders),
+                p.num_partitions, bounds=())
         raise NotImplementedError(f"partitioning {p.kind!r}")
 
     def _plan_shuffle_writer(self, n: pb.ShuffleWriterNode) -> PhysicalOp:
@@ -293,7 +308,8 @@ def fuse_stages(op: PhysicalOp, config=None) -> PhysicalOp:
     of fusable row-local operators into FusedStageOp nodes, and push the
     key/value projection of partial/complete aggregations below the agg
     so its expression evaluation joins the chain. Stage breakers (agg,
-    exchange, scans) have no fragment, so a chain cannot cross them.
+    sort, exchange, scans) have no fragment, so a chain cannot cross
+    them.
     Gated on ``auron.fusion.enabled``; chain length is bounded by
     ``auron.fusion.max_stage_ops``. The projection normalization runs
     under both settings, so the two give the same plan below the aggs."""

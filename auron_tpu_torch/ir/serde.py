@@ -112,6 +112,10 @@ def expr_to_proto(e: ir.Expr) -> pb.ExprNode:
     if op is not None:
         return pb.ExprNode(unary=pb.UnaryE(op=op,
                                            child=expr_to_proto(e.child)))
+    if isinstance(e, ir.Cast):
+        return pb.ExprNode(cast=pb.CastE(
+            child=expr_to_proto(e.child), dtype=_DT_TO_P[e.dtype],
+            precision=e.precision, scale=e.scale, ansi=not e.safe))
     raise NotImplementedError(f"expr_to_proto: {type(e).__name__}")
 
 
@@ -142,6 +146,11 @@ def parse_expr(p: pb.ExprNode) -> ir.Expr:
         if cls is None:
             raise NotImplementedError(f"parse_expr: unary {p.unary.op}")
         return cls(parse_expr(p.unary.child))
+    if kind == "cast":
+        # TryCast is null-on-failure regardless of session ANSI mode
+        safe = p.cast.try_cast or not p.cast.ansi
+        return ir.Cast(parse_expr(p.cast.child), _P_TO_DT[p.cast.dtype],
+                       p.cast.precision, p.cast.scale, safe=safe)
     raise NotImplementedError(f"parse_expr: {kind}")
 
 

@@ -1,8 +1,8 @@
 """TPC-DS-class integration queries the port can run.
 
-Copies of ``auron_tpu.it.queries``'s q01, q10, q11 and q13, with their
-pandas oracles. Each query runs through the whole front end: DataFrame
-DSL → protobuf TaskDefinition → physical planner → operators
+Copies of ``auron_tpu.it.queries``'s q01, q02, q10, q11, q12 and q13,
+with their pandas oracles. Each query runs through the whole front end:
+DataFrame DSL → protobuf TaskDefinition → physical planner → operators
 (``ShuffleExchangeOp`` stages included). ``store_quantity_dataframe``
 is one more query over an in-memory table (``Session.from_arrow``),
 whose single partition lets the planner derive a dense key domain.
@@ -15,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+from auron_tpu_torch.columnar.schema import DataType
 from auron_tpu_torch.frontend.dataframe import col
 from auron_tpu_torch.frontend.dataframe import functions as F
 
@@ -60,6 +61,24 @@ def _q01_oracle(p):
         avg_profit=("ss_net_profit", "mean")).reset_index()
 
 
+# q02: top-k customers by revenue (agg → exchange → global sort + limit)
+
+def q02_dataframe(s, t, limit=100):
+    """``limit=None`` is the full sort through the range exchange."""
+    return (_sales(s, t)
+            .group_by("ss_customer_sk")
+            .agg(F.sum(col("ss_net_paid")).alias("revenue"))
+            .sort(col("revenue").desc(), col("ss_customer_sk").asc(),
+                  limit=limit))
+
+
+def _q02_oracle(p):
+    g = p["store_sales"].groupby("ss_customer_sk").agg(
+        revenue=("ss_net_paid", "sum")).reset_index()
+    return g.sort_values(["revenue", "ss_customer_sk"],
+                         ascending=[False, True]).head(100)
+
+
 # q10: agg → filter on the aggregate (HAVING)
 
 def q10_dataframe(s, t):
@@ -100,6 +119,28 @@ def _q11_oracle(p):
         n=("ss_quantity", "size")).reset_index()
 
 
+# q12: projection arithmetic with a cast → filter → global top-k by the
+# computed column
+
+def q12_dataframe(s, t):
+    return (_sales(s, t)
+            .select(col("ss_item_sk"),
+                    (col("ss_sales_price")
+                     * col("ss_quantity").cast(DataType.FLOAT64))
+                    .alias("revenue"),
+                    col("ss_net_profit"))
+            .filter(col("ss_net_profit") > 0)
+            .sort(col("revenue").desc(), col("ss_item_sk").asc(), limit=20))
+
+
+def _q12_oracle(p):
+    ss = p["store_sales"].copy()
+    ss["revenue"] = ss.ss_sales_price * ss.ss_quantity
+    f = ss[ss.ss_net_profit > 0][["ss_item_sk", "revenue", "ss_net_profit"]]
+    return f.sort_values(["revenue", "ss_item_sk"],
+                         ascending=[False, True]).head(20)
+
+
 # q13: distinct buying customers per store (two nested aggs through two
 # exchanges)
 
@@ -137,9 +178,13 @@ def _store_quantity_oracle(p):
 QUERIES = [
     Query("q01_filter_agg", "scan→filter→two-phase agg", q01_dataframe,
           _q01_oracle),
+    Query("q02_topk_revenue", "agg→exchange→global sort+limit",
+          q02_dataframe, _q02_oracle),
     Query("q10_having", "agg→filter-on-aggregate", q10_dataframe,
           _q10_oracle),
     Query("q11_union", "union of branches→agg", q11_dataframe, _q11_oracle),
+    Query("q12_computed_topk", "project arithmetic→top-k", q12_dataframe,
+          _q12_oracle),
     Query("q13_distinct_buyers", "nested aggs through exchange",
           q13_dataframe, _q13_oracle),
 ]

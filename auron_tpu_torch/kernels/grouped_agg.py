@@ -40,6 +40,8 @@ from typing import NamedTuple
 
 import torch
 
+from auron_tpu_torch.utils.float_order import scatter_min_max
+
 #: lane width of the reference's dense grids (keys decompose as
 #: (k >> 8, k & 255)); kept so grid_dims and its errors match
 _LANES = 256
@@ -341,6 +343,5 @@ def scatter_reduce(kind: str, k: torch.Tensor, v, valid: torch.Tensor,
                                         device=k.device))
         acc = torch.full((key_domain + 1,), neutral, dtype=dtype,
                          device=k.device)
-        return acc.scatter_reduce_(0, idx, vals, reduce="a" + kind,
-                                   include_self=True)[:key_domain]
+        return scatter_min_max(acc, idx, vals, kind)[:key_domain]
     raise ValueError(f"unknown scatter reduction {kind!r}")

@@ -49,6 +49,7 @@ from auron_tpu_torch.exprs.eval import (EvalContext, evaluate, infer_dtype,
 from auron_tpu_torch.ops import hashing
 from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       host_readback, timer)
+from auron_tpu_torch.utils.float_order import min_max, scatter_min_max
 from auron_tpu_torch.utils.shapes import bucket_rows
 
 # ---------------------------------------------------------------------------
@@ -228,10 +229,9 @@ def _segment(kind: str, vals: torch.Tensor, dest: torch.Tensor,
             return _segment(kind, vals.to(torch.int8), dest, out_cap,
                             spare).bool()
         ident = _neutral(kind, vals.dtype)
-        return torch.full((out_cap + spare,), ident, dtype=vals.dtype,
-                          device=vals.device).scatter_reduce_(
-            0, dest, vals, "amin" if kind == "min" else "amax",
-            include_self=True)[:out_cap]
+        return scatter_min_max(
+            torch.full((out_cap + spare,), ident, dtype=vals.dtype,
+                       device=vals.device), dest, vals, kind)[:out_cap]
     raise ValueError(kind)
 
 
@@ -272,7 +272,8 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
 def _batch_reduce(keys, accs, live, kinds, cap: int):
     """(keys, accs, live) of one batch → its own group table,
     hash-sorted: one stable sort of the BATCH only."""
-    h = hashing.xxhash64_columns(list(keys), cap) ^ _SIGN
+    h = hashing.xxhash64_columns(list(keys), cap,
+                                 device=live.device) ^ _SIGN
     h = torch.where(live, h, _HASH_SENTINEL)   # dead rows to the end
     perm = torch.argsort(h, stable=True)
     ones = torch.ones(cap, dtype=torch.bool, device=live.device)
@@ -734,8 +735,7 @@ class AggOp(PhysicalOp):
     @staticmethod
     def _dense_merge(spec, a, b):
         if spec.fn in ("min", "max"):
-            op = torch.minimum if spec.fn == "min" else torch.maximum
-            return (op(a[0], b[0]), a[1] + b[1])
+            return (min_max(a[0], b[0], spec.fn), a[1] + b[1])
         return tuple(x + y for x, y in zip(a, b))
 
     def _dense_domain_stream(self, partition: int, ctx: ExecContext,

@@ -212,11 +212,24 @@ def _hash_column_murmur(col: PrimitiveColumn,
     return torch.where(col.validity, new, hashes)
 
 
+def _hash_device(cols, device) -> torch.device:
+    """Where the hashes live: ``device`` when given, else the first
+    column's. Without columns every row hashes to the seed, and only the
+    caller knows the device."""
+    if device is not None:
+        return torch.device(device)
+    if not cols:
+        raise ValueError("hashing no columns needs its device")
+    return cols[0].data.device
+
+
 def murmur3_columns(cols: list[PrimitiveColumn], capacity: int,
-                    seed: int = SPARK_SHUFFLE_SEED) -> torch.Tensor:
-    """Spark create_hashes: running int32 hash chained across columns."""
+                    seed: int = SPARK_SHUFFLE_SEED,
+                    device=None) -> torch.Tensor:
+    """Spark create_hashes: running int32 hash chained across columns;
+    the seed in every row when there are none."""
     hashes = torch.full((capacity,), seed, dtype=torch.int32,
-                        device=cols[0].data.device)
+                        device=_hash_device(cols, device))
     for col in cols:
         hashes = _hash_column_murmur(col, hashes)
     return hashes
@@ -225,7 +238,7 @@ def murmur3_columns(cols: list[PrimitiveColumn], capacity: int,
 def murmur3_batch(batch, key_indices: list[int],
                   seed: int = SPARK_SHUFFLE_SEED) -> torch.Tensor:
     return murmur3_columns([batch.columns[i] for i in key_indices],
-                           batch.capacity, seed)
+                           batch.capacity, seed, device=batch.device)
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +262,12 @@ def _hash_column_xxhash(col: PrimitiveColumn,
 
 
 def xxhash64_columns(cols: list[PrimitiveColumn], capacity: int,
-                     seed: int = 42) -> torch.Tensor:
+                     seed: int = 42, device=None) -> torch.Tensor:
     """Running int64 xxhash64 chained across ``cols`` (Spark's
-    create_xxhash64_hashes)."""
+    create_xxhash64_hashes); the seed in every row when there are
+    none."""
     hashes = torch.full((capacity,), seed, dtype=torch.int64,
-                        device=cols[0].data.device)
+                        device=_hash_device(cols, device))
     for col in cols:
         hashes = _hash_column_xxhash(col, hashes)
     return hashes

@@ -9,13 +9,21 @@ from every entry as a gather into a batch of its own bucketed capacity,
 never touching other partitions' rows. The exchange is materialized on
 the first ``execute`` and memoized.
 
-Host syncs: one readback of the per-partition counts per input batch.
-Spill to host storage, the mesh (all-to-all) route, map-side combine and
-the RSS and broadcast exchanges wait for later slices.
+A range exchange whose plan carries no bounds samples them from the
+leading input batches of the same pass, up to ``_RANGE_SAMPLE_ROWS``
+rows (``partitioning.compute_range_bounds``); the child runs once, and
+the sampled batches go first into the split.
+
+Host syncs: one readback of the per-partition counts per input batch;
+a range exchange also reads each sampled batch's row count and copies
+the sampled rows' sort words to the host once. Spill to host storage,
+the mesh (all-to-all) route, map-side combine and the RSS and broadcast
+exchanges wait for later slices.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Iterator, Optional
 
@@ -27,8 +35,14 @@ from auron_tpu_torch.columnar.batch import (DeviceBatch, batch_nbytes,
 from auron_tpu_torch.columnar.schema import Schema
 from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       host_readback, timer)
-from auron_tpu_torch.parallel.partitioning import RoundRobinPartitioning
+from auron_tpu_torch.parallel.partitioning import (RangePartitioning,
+                                                   RoundRobinPartitioning,
+                                                   compute_range_bounds)
 from auron_tpu_torch.utils.shapes import bucket_rows
+
+#: rows sampled for range bounds, as in the reference, which samples
+#: on the host as Spark's range partitioner does
+_RANGE_SAMPLE_ROWS = 10_000
 
 
 def _split_body(batch: DeviceBatch, pids: torch.Tensor, num_partitions: int):
@@ -146,8 +160,25 @@ class ShuffleExchangeOp(PhysicalOp):
                 f"{type(partitioning).__name__}: not ported")
         sync = ctx.device_sync
         live_bytes = ctx.metrics_for(self).counter("shuffle_bytes_live")
+        batches = self._input_batches(ctx)
+        pending: list[DeviceBatch] = []
+        if isinstance(partitioning, RangePartitioning) \
+                and not partitioning.bounds:
+            # bounds from the LEADING batches of this same pass: the
+            # child is never executed twice
+            sampled = 0
+            for batch in batches:
+                pending.append(batch)
+                (n,) = host_readback([batch.num_rows])
+                sampled += n
+                if sampled >= _RANGE_SAMPLE_ROWS:
+                    break
+            partitioning = RangePartitioning(
+                partitioning.sort_orders, n_out, compute_range_bounds(
+                    pending, partitioning.sort_orders, schema, n_out))
+            self.partitioning = partitioning
         row_offset = 0
-        for batch in self._input_batches(ctx):
+        for batch in itertools.chain(pending, batches):
             with timer(write_time, sync=sync) as t:
                 if isinstance(partitioning, RoundRobinPartitioning):
                     part = RoundRobinPartitioning(n_out, row_offset)

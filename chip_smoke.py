@@ -70,7 +70,8 @@ p. TPC-DS SF10's store_sales, made on the machine by
    host syncs counted (``ops.base.host_readback.syncs``, and PyTorch's
    sync debug mode's warnings). Where pyarrow imports, the 4 files are
    written under the checkout and plan (a) runs through
-   ``ParquetScanOp`` too; where it does not, a line says so.
+   ``ParquetScanOp`` too, checked once and not timed: it is phase s's
+   q01, which times it; where pyarrow does not import, a line says so.
 
 The front end (``auron_tpu_torch.frontend``: Session → DataFrame →
 protobuf TaskDefinition → planner → collect), run after phase p:
@@ -86,9 +87,17 @@ s. q01, q10, q11 and q13 of ``it/queries.py`` through
    ``key_domain = max(ss_store_sk) + 1`` and the AggOp take the dense
    path. ``cuda_sum_count.launches`` must stay 0 across the phase: the
    planner derives no dense domain for a float sum, as the reference's
-   does not. Each query is timed (median of 3 after the checked run),
-   profiled once (device activity only) and its host syncs per input
-   batch counted.
+   does not. Then a keyless aggregate over the files (sum and count of
+   every row: one row, the oracle's), and the sorts: q02 (customers by
+   revenue, top 100), q12 (a cast in the projection, a filter, top 20)
+   and q02 without its limit (the full sort of 960,000 customers through
+   a range exchange into 4 partitions, whose key ranges must be disjoint
+   and ascending), each held in order against a numpy oracle: exact keys
+   identical, float64 sum keys within 1e-12 of the customer's sum of |v|
+   with swaps allowed only between near-ties, and rows that tie on every
+   key in either order. Each query but the keyless one is timed (median
+   of 3 after the checked run), profiled once (device activity only)
+   and its host syncs per input batch counted.
 
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
@@ -1014,11 +1023,11 @@ def dense_launches_per_batch(plan) -> int:
 
 
 def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
-             batches: int, dev) -> dict:
+             batches: int, dev, timed: bool = True) -> dict:
     """One plan: a checked run with the launch and sync counters from 0,
-    PIPE_RUNS timed queries after a warm-up, one profiled query, one
-    under PyTorch's sync debug mode. Returns the report and the checked
-    run's rows."""
+    then, if ``timed``, PIPE_RUNS timed queries after a warm-up, one
+    profiled query, one under PyTorch's sync debug mode. Returns the
+    report and the checked run's rows."""
     from auron_tpu_torch import entry as tentry
 
     def query(metrics=None):
@@ -1058,6 +1067,18 @@ def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
                for name, m in metrics.items()
                if "elapsed_compute" in m.snapshot()}
     steps["checked_s"] = time.perf_counter() - t_step
+    out = {"rows": rows, "input_batches": batches,
+           "key_domain": key_domain, "first_ms": first_ms,
+           "host_syncs": syncs, "host_syncs_per_batch": syncs / batches,
+           "cuda_sum_count_launches": launches,
+           "elapsed_compute_ms": elapsed,
+           "peak_bytes": peak, "peak_above_inputs_bytes": peak - base,
+           "max_err_share": worst,
+           "groups": int(got["ss_store_sk"][0].size), "steps_s": steps,
+           "plan": plan.tree_string()}
+    if not timed:
+        log(f"pipeline {label}: {json.dumps(out)}")
+        return out, got
 
     t_step = time.perf_counter()
     query()
@@ -1077,17 +1098,8 @@ def run_plan(label: str, make_source, key_domain, oracle, tol, rows: int,
     t_step = time.perf_counter()
     sync_warnings = count_sync_warnings(query)
     steps["sync_debug_s"] = time.perf_counter() - t_step
-    out = {"rows": rows, "input_batches": batches,
-           "key_domain": key_domain, "first_ms": first_ms, "ms": ms,
-           "runs_ms": runs, "rows_per_s": rows / (ms / 1e3),
-           "host_syncs": syncs, "host_syncs_per_batch": syncs / batches,
-           "sync_warnings": sync_warnings,
-           "cuda_sum_count_launches": launches,
-           "elapsed_compute_ms": elapsed,
-           "peak_bytes": peak, "peak_above_inputs_bytes": peak - base,
-           "max_err_share": worst, "profile": prof,
-           "groups": int(got["ss_store_sk"][0].size), "steps_s": steps,
-           "plan": plan.tree_string()}
+    out.update(ms=ms, runs_ms=runs, rows_per_s=rows / (ms / 1e3),
+               sync_warnings=sync_warnings, profile=prof)
     log(f"pipeline {label}: {json.dumps(out)}")
     return out, got
 
@@ -1203,9 +1215,12 @@ def phase_pipeline(dev, seed: int, rate: float, root: str
     t0 = time.perf_counter()
     files = tpcds_data.write_store_sales(root, cols)
     out["parquet_write_s"] = time.perf_counter() - t0
+    # plan (a) over parquet is phase s's q01 (the same tree, checked
+    # there): here its checked run only, so the script stays within
+    # ~650 s; the Session's q01 gives its time, profile and syncs
     out["parquet"], _ = run_plan("(a) sort plan over parquet",
                                  lambda: files, None, oracle, F64_SUM_TOL,
-                                 rows, batches, dev)
+                                 rows, batches, dev, timed=False)
     for_session["files"] = files
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"pipeline phase: {out['phase_s']:.1f} s")
@@ -1263,6 +1278,152 @@ def session_oracles(cols: dict) -> dict:
     return out
 
 
+def sort_oracles(cols: dict) -> dict:
+    """The sort queries of phase s in numpy over the generated columns.
+
+    q02: per customer with rows, sorted by customer, the float64 sum of
+    ``ss_net_paid`` (null rows hold 0.0), the sum of its |v| (the scale
+    of the tolerance), whether it has a non-null value, and the order of
+    the customers by (revenue desc, nulls last, customer asc).
+
+    q12: the rows of ``ss_sales_price * float64(ss_quantity)`` with
+    ``ss_net_profit > 0`` whose revenue reaches the 20th largest, in the
+    order (revenue desc, item asc, row number): every row that ties with
+    the 20th on both keys is among them. The product is IEEE-exact in
+    numpy and on the card, so the keys are identical."""
+    cust = cols["ss_customer_sk"][0]
+    paid, paid_ok = cols["ss_net_paid"]
+    size = int(cust.max()) + 1
+    present = np.flatnonzero(np.bincount(cust, minlength=size))
+    rev = np.bincount(cust, weights=np.where(paid_ok, paid, 0.0),
+                      minlength=size)[present]
+    scale = np.bincount(cust, weights=np.abs(np.where(paid_ok, paid, 0.0)),
+                        minlength=size)[present]
+    has = np.bincount(cust, weights=paid_ok.astype(np.float64),
+                      minlength=size)[present] > 0
+    q02 = {"customer": present, "revenue": rev, "scale": scale, "has": has,
+           "order": np.lexsort((present, -rev, ~has))}
+    keep = np.flatnonzero(cols["ss_net_profit"][0] > 0)
+    revenue = cols["ss_sales_price"][0][keep] \
+        * cols["ss_quantity"][0][keep].astype(np.float64)
+    top = np.partition(revenue, revenue.size - 20)[revenue.size - 20]
+    at = np.flatnonzero(revenue >= top)
+    item = cols["ss_item_sk"][0][keep][at]
+    order = np.lexsort((at, item, -revenue[at]))
+    q12 = {"ss_item_sk": item[order], "revenue": revenue[at][order],
+           "ss_net_profit": cols["ss_net_profit"][0][keep][at][order]}
+    return {"q02": q02, "q12": q12}
+
+
+def check_float_sort(table, oracle: dict, label: str, limit=None,
+                     sizes=None) -> dict:
+    """q02's rows, sorted by a float64 sum (revenue desc, nulls last,
+    customer asc), against the oracle.
+
+    The sums are within 1e-12 of the customer's sum of |v|, not
+    bit-identical, so two customers whose sums lie closer than that may
+    swap places. The tie rule: the table's own order must be exact on
+    its own values; every revenue must be within tolerance of the
+    oracle's for that customer; and at each position where the table's
+    customer is not the oracle's, the two customers' oracle revenues
+    must lie within the sum of their tolerances (a near-tie, counted as
+    a swap). ``limit``: the top-k's k, None for the full sort.
+    ``sizes``: the rows of each partition of a full sort, whose key
+    ranges must be disjoint and ascending."""
+    cust = table["ss_customer_sk"].to_numpy()
+    null = table["revenue"].is_null().to_numpy(zero_copy_only=False)
+    rev = table["revenue"].to_numpy(zero_copy_only=False)
+    n = cust.size
+    want = oracle["order"][:n]
+    groups = oracle["order"].size
+    check(n == (groups if limit is None else min(limit, groups)),
+          f"{label}: {n} rows of the oracle's {groups} customers")
+    at = np.searchsorted(oracle["customer"], cust)
+    check(bool((at < oracle["customer"].size).all()
+               and (oracle["customer"][np.minimum(at, oracle["customer"]
+                                                  .size - 1)] == cust)
+               .all()), f"{label}: every customer is the oracle's")
+    check(np.array_equal(null, ~oracle["has"][at]),
+          f"{label}: null revenues where the oracle has no value")
+    check(not null.any() or bool(null[int(np.argmax(null)):].all()),
+          f"{label}: null revenues last")
+    err = np.abs(rev[~null] - oracle["revenue"][at][~null])
+    tol = F64_SUM_TOL * oracle["scale"][at][~null]
+    check(bool((err <= tol).all()),
+          f"{label}: revenue within {F64_SUM_TOL} of the customer's sum "
+          "of |v|")
+    # the table's own order, exact on its own values: strictly
+    # descending revenue, customer ascending on equal revenue
+    a, b = rev[~null][:-1], rev[~null][1:]
+    ca, cb = cust[~null][:-1], cust[~null][1:]
+    check(bool(((a > b) | ((a == b) & (ca < cb))).all()),
+          f"{label}: rows in (revenue desc, customer asc) order")
+    tail = cust[null]
+    check(bool((tail[1:] > tail[:-1]).all()),
+          f"{label}: null-revenue rows in customer order")
+    moved = np.flatnonzero(at != want)
+    o_rev, o_scale = oracle["revenue"], oracle["scale"]
+    near = np.abs(o_rev[at[moved]] - o_rev[want[moved]]) <= F64_SUM_TOL * (
+        o_scale[at[moved]] + o_scale[want[moved]])
+    check(bool(near.all()),
+          f"{label}: the oracle's customer order, up to near-ties "
+          f"({moved.size} positions differ)")
+    out = {"rows": n, "near_tie_swaps": int(moved.size),
+           "max_err_share": float((err / np.maximum(
+               oracle["scale"][at][~null], 1e-300)).max())}
+    if sizes is not None:
+        check(sum(sizes) == n, f"{label}: partitions add up to the rows")
+        edges = np.cumsum(sizes)[:-1]
+        for e, lo, hi in zip(edges, sizes[:-1], sizes[1:]):
+            if lo and hi:
+                # the last row of one partition strictly before the first
+                # of the next: key ranges disjoint and ascending
+                i = e - 1
+                check(bool(rev[i] > rev[i + 1] or (rev[i] == rev[i + 1]
+                                                   and cust[i] < cust[i + 1])),
+                      f"{label}: partition key ranges disjoint and "
+                      "ascending")
+        out["partition_rows"] = list(sizes)
+    log(f"{label}: {json.dumps(out)}")
+    return out
+
+
+def check_exact_sort(table, want: dict, keys: list, label: str) -> dict:
+    """A top-k whose sort keys are exact (q12) against the oracle's
+    rows in order (``want``: every candidate row, at least as many as
+    the table has). The key columns must be identical in order. Rows
+    that tie on every key may come in either order, so the other
+    columns are compared as multisets within each run of equal keys,
+    and a run that the limit cuts may hold any of the oracle's rows of
+    that run."""
+    from collections import Counter
+    n = table.num_rows
+    got = {c: table[c].to_numpy() for c in want}
+    check(0 < n <= want[keys[0]].size, f"{label}: {n} rows")
+    for c in keys:
+        check(np.array_equal(got[c], want[c][:n]),
+              f"{label}: {c} identical to the oracle's, in order")
+    m = want[keys[0]].size
+    new_run = np.zeros(m, bool)
+    new_run[0] = True
+    for c in keys:
+        new_run[1:] |= want[c][1:] != want[c][:-1]
+    run = np.cumsum(new_run) - 1
+    others = [c for c in want if c not in keys]
+    tied = 0
+    for r in np.unique(run[:n]):
+        mine = np.flatnonzero(run[:n] == r)
+        full = np.flatnonzero(run == r)
+        tied += int(mine.size > 1)
+        g = Counter(tuple(got[c][i] for c in others) for i in mine)
+        w = Counter(tuple(want[c][i] for c in others) for i in full)
+        ok = g == w if mine.size == full.size else not (g - w)
+        check(ok, f"{label}: rows of the tie run {int(r)} are the oracle's")
+    out = {"rows": n, "tie_runs": tied}
+    log(f"{label}: {json.dumps(out)}")
+    return out
+
+
 def check_session_result(table, oracle, label: str) -> float:
     """A collected Session result against its numpy oracle: the group
     keys and every integer column identical, every float column within
@@ -1293,11 +1454,35 @@ def check_session_result(table, oracle, label: str) -> float:
     return worst
 
 
-def run_session_query(label: str, make_df, oracle, rows: int) -> dict:
+def collect_partitions(session, df, metrics: dict):
+    """``df.collect(metrics=...)`` one partition at a time, as the
+    executor runs them: (the table, each partition's row count, the
+    physical plan)."""
+    import pyarrow as pa
+    from auron_tpu_torch.columnar.arrow_bridge import (schema_to_arrow,
+                                                       to_arrow)
+    from auron_tpu_torch.runtime.executor import run_partition
+    plan = session.plan_physical(df)
+    schema = plan.schema()
+    sizes, batches = [], []
+    for p in range(df.num_partitions):
+        part = [to_arrow(b, schema) for b in run_partition(
+            plan, p, df.num_partitions, session.config, metrics)]
+        sizes.append(sum(b.num_rows for b in part))
+        batches += part
+    return (pa.Table.from_batches(batches, schema=schema_to_arrow(schema)),
+            sizes, plan)
+
+
+def run_session_query(label: str, make_df, verify, rows: int,
+                      by_partition=None) -> dict:
     """One query through the Session: a checked run, which is also the
     warm-up, with its host syncs counted (``host_readback`` and the hash
     table's claim rounds), SESSION_RUNS timed queries, one profiled query
-    (device activity only)."""
+    (device activity only). ``verify(table, partition_sizes)`` checks
+    the result and returns a summary of the check; the sizes are None
+    unless ``by_partition`` (the session) asks the checked run to
+    collect one partition at a time."""
     df = make_df()
     t0 = time.perf_counter()
     tree = df.explain()
@@ -1307,18 +1492,21 @@ def run_session_query(label: str, make_df, oracle, rows: int) -> dict:
     torch.cuda.synchronize()
     s0, (_r, h0) = host_readback.syncs, loop_counts()
     t0 = time.perf_counter()
-    table = df.collect(metrics=metrics)
+    if by_partition is None:
+        table, sizes = df.collect(metrics=metrics), None
+    else:
+        table, sizes, _plan = collect_partitions(by_partition, df, metrics)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     # the operators' readbacks and the hash table's claim-round reads
     hash_syncs = loop_counts()[1] - h0
     syncs = host_readback.syncs - s0 + hash_syncs
-    worst = check_session_result(table, oracle, label)
+    worst = verify(table, sizes)
     scans = [m.snapshot() for name, m in metrics.items()
              if name in ("parquet_scan", "memory_scan")]
     batches = sum(sc["output_batches"] for sc in scans)
     scanned = sum(sc["output_rows"] for sc in scans)
-    agg = metrics["agg"].snapshot()
+    agg = metrics["agg"].snapshot() if "agg" in metrics else {}
 
     def query():
         return make_df().collect()
@@ -1341,7 +1529,8 @@ def run_session_query(label: str, make_df, oracle, rows: int) -> dict:
            "runs_ms": runs, "rows_per_s": rows / (ms / 1e3),
            "host_syncs": syncs, "host_syncs_hash_table": hash_syncs,
            "host_syncs_per_batch": syncs / batches,
-           "groups": table.num_rows, "max_err_share": worst,
+           "groups": table.num_rows, "check": worst,
+           "partition_rows": sizes,
            "agg_paths": {k: v for k, v in agg.items()
                          if k.startswith("dispatch_")},
            "profile": prof, "steps_s": steps, "plan": tree,
@@ -1352,11 +1541,14 @@ def run_session_query(label: str, make_df, oracle, rows: int) -> dict:
 
 
 def phase_session(dev, pipe: dict) -> dict:
-    """s. q01, q10, q11 and q13 through ``Session.read_parquet`` over
-    phase p's 4 files, and a query over ``Session.from_arrow`` of the
-    same table, on the card."""
+    """s. q01, q10, q11 and q13, a keyless aggregate, q02, q12 and q02's
+    full sort through ``Session.read_parquet`` over phase p's 4 files,
+    and a query over ``Session.from_arrow`` of the same table, on the
+    card."""
     import pyarrow as pa
     from auron_tpu_torch import entry as tentry
+    from auron_tpu_torch.frontend.dataframe import col
+    from auron_tpu_torch.frontend.dataframe import functions as F
     from auron_tpu_torch.frontend.session import Session
     from auron_tpu_torch.it import queries as tq
 
@@ -1376,7 +1568,47 @@ def phase_session(dev, pipe: dict) -> dict:
     gagg.cuda_sum_count.launches = 0
     for name, fn in queries.items():
         out[name] = run_session_query(
-            name, lambda fn=fn: fn(session, tables), oracles[name], rows)
+            name, lambda fn=fn: fn(session, tables),
+            lambda t, _s, name=name: check_session_result(
+                t, oracles[name], name), rows)
+
+    # a global aggregate over the 4 files: partial → single exchange →
+    # final, with no group key to hash
+    t0 = time.perf_counter()
+    keyless = (session.read_parquet(tables["store_sales"], partitions=4)
+               .group_by().agg(F.sum(col("ss_quantity")).alias("q"),
+                               F.count_star().alias("n")).collect())
+    torch.cuda.synchronize()
+    out["keyless"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "rows": keyless.to_pylist()}
+    check(out["keyless"]["rows"] == [{"q": int(cols["ss_quantity"][0].sum()),
+                                      "n": rows}],
+          f"keyless aggregate: {out['keyless']['rows']}")
+    log(f"session keyless: {json.dumps(out['keyless'])}")
+
+    # the sorts: q02 and q12 (top-k: a map-side sort → single exchange →
+    # final top-k), and q02 without its limit (a range exchange → a
+    # sort per partition)
+    t0 = time.perf_counter()
+    sorts = sort_oracles(cols)
+    out["sort_oracle_s"] = time.perf_counter() - t0
+    out["q02"] = run_session_query(
+        "q02", lambda: tq.q02_dataframe(session, tables),
+        lambda t, _s: check_float_sort(t, sorts["q02"], "q02", 100),
+        rows)
+    out["q12"] = run_session_query(
+        "q12", lambda: tq.q12_dataframe(session, tables),
+        lambda t, _s: check_exact_sort(t, sorts["q12"],
+                                       ["revenue", "ss_item_sk"], "q12"),
+        rows)
+    out["q02_full_sort"] = run_session_query(
+        "q02_full_sort", lambda: tq.q02_dataframe(session, tables,
+                                                  limit=None),
+        lambda t, sizes: check_float_sort(t, sorts["q02"], "q02_full_sort",
+                                          sizes=sizes),
+        rows, by_partition=session)
+    check(len(out["q02_full_sort"]["partition_rows"]) == 4,
+          "q02_full_sort: 4 range partitions")
 
     # q01 through the Session is phase p's plan (a): the same operators
     # above the scan, the same rows in the same order
@@ -1414,7 +1646,8 @@ def phase_session(dev, pipe: dict) -> dict:
     out["store_quantity"] = run_session_query(
         "store_quantity (from_arrow)",
         lambda: tq.store_quantity_dataframe(session, arrow),
-        oracles["store_quantity"], rows)
+        lambda t, _s: check_session_result(t, oracles["store_quantity"],
+                                           "store_quantity"), rows)
     paths = out["store_quantity"]["agg_paths"]
     check(set(paths) == {"dispatch_cuda_dense"}
           and paths["dispatch_cuda_dense"] == 1,
@@ -1426,7 +1659,8 @@ def phase_session(dev, pipe: dict) -> dict:
           "derives no dense domain for a float sum)")
     log(f"session: cuda_sum_count.launches = "
         f"{out['cuda_sum_count_launches']} across the phase")
-    for name in ("q01", "q10", "q11", "q13", "store_quantity"):
+    for name in ("q01", "q10", "q11", "q13", "q02", "q12",
+                 "q02_full_sort", "store_quantity"):
         del out[name]["table"]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"session phase: {out['phase_s']:.1f} s")

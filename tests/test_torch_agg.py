@@ -272,6 +272,82 @@ def test_global_agg_over_empty_input(path):
     assert got.to_pylist() == want.to_pylist()
 
 
+KEYLESS = [(mode, path) for path in ("sort", "hash")
+           for mode in ("complete", "two_phase")]
+
+
+@pytest.mark.parametrize("mode,path", KEYLESS,
+                         ids=[f"{p}-{m}" for m, p in KEYLESS])
+def test_global_agg_over_rows_matches_reference(data, mode, path):
+    """A global aggregate (no group keys) over non-empty input: every row
+    hashes to the seed and forms one group, in both packages. Two-phase,
+    each of the final's two partitions gives one row (the one that
+    receives no state row gives the empty-input row)."""
+    parts, cols = data["keys_with_nulls"]
+    ref_op, n = _plan(REF, parts, mode, path, group=False)
+    port_op, _ = _plan(PORT, parts, mode, path, group=False)
+    want = _run(REF, ref_op, n, _conf(REF, path))
+    got = _run(PORT, port_op, n, _conf(PORT, path))
+    assert want.num_rows == (1 if mode == "complete" else 2)
+    assert_same(got, want, cols, F64_TOL)
+
+
+def _zero_batches(split: bool):
+    """Groups 1 and 2 hold 0.0 and -0.0 in both orders, group 3 holds
+    1.0 and NaN, group 4 one 5.0 and a null: in one batch, or the first
+    value of each group in one batch and the second in the next."""
+    k = [1, 1, 2, 2, 3, 3, 4, 4]
+    w = [0.0, -0.0, -0.0, 0.0, 1.0, float("nan"), 5.0, None]
+    if not split:
+        return [pa.record_batch({"k": pa.array(k, pa.int64()),
+                                 "w": pa.array(w, pa.float64())})]
+    return [pa.record_batch({"k": pa.array(k[i::2], pa.int64()),
+                             "w": pa.array(w[i::2], pa.float64())})
+            for i in (0, 1)]
+
+
+@pytest.mark.parametrize("split", [False, True],
+                         ids=["one_batch", "two_batches"])
+@pytest.mark.parametrize("path", ["sort", "hash", "dense"])
+def test_float_min_max_order_signed_zeros(path, split):
+    """Float min and max order -0.0 below 0.0, as the reference's XLA
+    reductions do, whichever zero comes first (within a batch and across
+    batches); a group holding a NaN gives NaN for both (ROADMAP Queue 3
+    item 7, kept)."""
+    rbs = _zero_batches(split)
+
+    def plan(ns):
+        scan = ns.Mem([rbs], ns.bridge.schema_from_arrow(rbs[0].schema),
+                      capacity=8)
+        C = ns.ir.ColumnRef
+        return ns.Agg(scan, [C(0)], [ns.ir.AggFunction("min", C(1)),
+                                     ns.ir.AggFunction("max", C(1))],
+                      mode="complete", group_names=["k"],
+                      agg_names=["lo", "hi"],
+                      key_domain=8 if path == "dense" else None)
+
+    want = _run(REF, plan(REF), 1, _conf(REF, path))
+    metrics = {}
+    got = _run(PORT, plan(PORT), 1, _conf(PORT, path), metrics)
+    expect = {"sort": "dispatch_sort", "hash": "dispatch_hashtable",
+              "dense": "dispatch_cuda_dense"}[path]
+    assert metrics["agg"].snapshot().get(expect, 0) == 1
+
+    def by_key(t):
+        return {r["k"]: (r["lo"], r["hi"]) for r in t.to_pylist()}
+
+    g, w = by_key(got), by_key(want)
+    assert set(g) == set(w) == {1, 2, 3, 4}
+    for key in (1, 2):
+        for side in (g, w):
+            lo, hi = side[key]
+            assert (lo, hi) == (0.0, 0.0)
+            assert np.signbit(lo) and not np.signbit(hi), (path, key, side)
+    for side in (g, w):
+        assert all(np.isnan(x) for x in side[3])
+        assert side[4] == (5.0, 5.0)
+
+
 def test_partial_skip_passes_rows_through():
     """Unique keys: once auron.agg.partial_skip.min_rows rows are seen
     the partial agg flushes its state and passes the rest through in

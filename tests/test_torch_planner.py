@@ -2,10 +2,12 @@
 
 ``plan_from_bytes`` of the reference DataFrame's task bytes gives, in
 the port, the reference planner's operator tree node by node (operator,
-repr, mode, keys, aggregates, partitioning, ``key_domain``, scan
-fields, fused members), with ``auron.fusion.enabled`` on and off, for
-q01, q10, q11, q13, the in-memory query, a filtered global limit, a
-scan of two columns, and a rename over a coalesce over a limit. The dense key domain the planner
+repr, mode, keys, aggregates, sort orders and fetch, partitioning,
+``key_domain``, scan fields, fused members), with
+``auron.fusion.enabled`` on and off, for q01, q02, q10, q11, q12, q13,
+q02's full sort (a range exchange), a keyless aggregate, the in-memory
+query, a filtered global limit, a scan of two columns, and a rename
+over a coalesce over a limit. The dense key domain the planner
 derives over an in-memory table equals the reference's, and is None on
 a float sum. Nodes the port has no operator for raise
 ``NotImplementedError`` naming them.
@@ -30,8 +32,9 @@ from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir.planner import PlannerContext, plan_from_bytes
 from auron_tpu_torch.runtime.executor import collect
 
-NAMES = ("q01", "q10", "q11", "q13", "store_quantity", "float_sum",
-         "limit", "rename", "pruned")
+NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
+         "keyless", "store_quantity", "float_sum", "limit", "rename",
+         "pruned")
 
 #: per operator: the fields it runs on, compared by repr
 FIELDS = {
@@ -43,6 +46,7 @@ FIELDS = {
     "ProjectOp": ("exprs", "names"),
     "ParquetScanOp": ("files", "batch_rows", "columns"),
     "MemoryScanOp": ("capacity",),
+    "SortOp": ("sort_exprs", "fetch"),
     "LimitOp": ("limit",),
     "CoalesceBatchesOp": ("target_rows",),
     "RenameColumnsOp": ("names",),
@@ -87,9 +91,17 @@ def _ref_dataframes(session, tables, table) -> dict:
     with mock.patch.object(rdf.DataFrame, "collect",
                            lambda self, *a, **k: self):
         out = {"q01": rqueries.q01_dataframe(session, tables),
+               "q02": rqueries._q02_run(session, tables),
                "q10": rqueries._q10_run(session, tables),
                "q11": rqueries._q11_run(session, tables),
+               "q12": rqueries._q12_run(session, tables),
                "q13": rqueries._q13_run(session, tables)}
+    sales = session.read_parquet(tables["store_sales"], partitions=4)
+    out["q02_full_sort"] = sales.group_by("ss_customer_sk").agg(
+        F.sum(col("ss_net_paid")).alias("revenue")).sort(
+        col("revenue").desc(), col("ss_customer_sk").asc())
+    out["keyless"] = sales.group_by().agg(
+        F.sum(col("ss_quantity")).alias("q"))
     mem = session.from_arrow(table, name="store_sales")
     out["store_quantity"] = mem.group_by("ss_store_sk").agg(
         F.count_star().alias("n"), F.sum(col("ss_quantity")).alias("qty"))
@@ -167,6 +179,18 @@ def test_trees_have_the_expected_shape(trees):
     assert got["store_quantity"].startswith("AggOp[complete")
     assert ("FusedStageOp[FilterOp[1 predicates] -> LimitOp[25]]"
             in got["limit"]) == fused
+    # top-k: final sort ← single exchange ← map-side sort, a stage
+    # breaker the fusion pass does not cross
+    for name in ("q02", "q12"):
+        lines = got[name].splitlines()
+        assert lines[0].strip().startswith("SortOp[2 keys, fetch=")
+        assert "ShuffleExchangeOp[SinglePartitioning 4->1]" in lines[1]
+        assert lines[2].strip() == lines[0].strip()
+    assert ("FusedStageOp[ProjectOp" in got["q12"]) == fused
+    full = got["q02_full_sort"].splitlines()
+    assert full[0].strip() == "SortOp[2 keys, fetch=None]"
+    assert "ShuffleExchangeOp[RangePartitioning 4->4]" in full[1]
+    assert "SinglePartitioning 4->1" in got["keyless"]
 
 
 def test_key_domain_derived_as_the_reference_does(trees, data):
@@ -206,10 +230,9 @@ def test_unported_nodes_raise_naming_them(data):
     scan = tpb.PlanNode(parquet_scan=tpb.ParquetScanNode(
         files=tables["store_sales"]))
     cases = {
-        "sort": tpb.PlanNode(sort=tpb.SortNode(child=scan)),
-        "range": tpb.PlanNode(shuffle_writer=tpb.ShuffleWriterNode(
-            child=scan, partitioning=tpb.PartitioningP(
-                kind="range", num_partitions=2))),
+        "hash_join": tpb.PlanNode(hash_join=tpb.HashJoinNode(
+            probe=scan, build=scan)),
+        "window": tpb.PlanNode(window=tpb.WindowNode(child=scan)),
         "pushdown": tpb.PlanNode(parquet_scan=tpb.ParquetScanNode(
             files=tables["store_sales"], predicates=[tpb.ExprNode(
                 column=tpb.ColumnRefE(index=0))])),

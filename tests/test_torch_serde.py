@@ -3,8 +3,9 @@
 - expressions, aggregates, sort orders and schemas of the port's IR
   round-trip through the port's messages and serialize to the same
   bytes as the same trees in the reference's IR;
-- for q01, q10, q11, q13 (``it/queries.py``), the in-memory query
-  ``store_quantity_dataframe`` and a scan of two columns, the port
+- for q01, q02, q10, q11, q12, q13 (``it/queries.py``), q02's full
+  sort (no limit: a range exchange), a keyless aggregate, the in-memory
+  query ``store_quantity_dataframe`` and a scan of two columns, the port
   DataFrame's ``task_bytes()`` equals the reference DataFrame's byte for
   byte;
 - reference bytes parse in the port and port bytes in the reference;
@@ -34,7 +35,8 @@ from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir import serde as tserde
 from auron_tpu_torch.it import queries as tqueries
 
-NAMES = ("q01", "q10", "q11", "q13", "store_quantity", "pruned")
+NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
+         "keyless", "store_quantity", "pruned")
 
 
 def _exprs(ir, DT):
@@ -50,6 +52,9 @@ def _exprs(ir, DT):
           ir.Not(ir.IsNull(C(7)))),
         B("or", ir.IsNotNull(C(1)), B("==", B("+", C(2), C(3)),
                                       B("%", C(0), L(3, DT.INT64)))),
+        B("*", C(5), ir.Cast(C(4, "ss_quantity"), DT.FLOAT64)),
+        ir.Cast(C(2), DT.INT32, safe=False),
+        ir.Cast(ir.Cast(C(0), DT.DECIMAL, 12, 2), DT.FLOAT32),
     ]
 
 
@@ -73,7 +78,7 @@ def _schema(S):
                          S.Field("x", DT.INT32), S.Field("y", DT.STRING)))))
 
 
-@pytest.mark.parametrize("i", range(13))
+@pytest.mark.parametrize("i", range(16))
 def test_expression_round_trip_and_bytes(i):
     got = _exprs(tir, tschema.DataType)[i]
     want = _exprs(rir, rschema.DataType)[i]
@@ -105,10 +110,10 @@ def test_schema_round_trip():
 
 
 def test_unported_expressions_raise_naming_the_node():
-    cast = rir.Cast(rir.ColumnRef(0), rschema.DataType.FLOAT64)
+    in_list = rir.InList(rir.ColumnRef(0), (1, 2))
     node = tpb.ExprNode.FromString(
-        rserde.expr_to_proto(cast).SerializeToString())
-    with pytest.raises(NotImplementedError, match="cast"):
+        rserde.expr_to_proto(in_list).SerializeToString())
+    with pytest.raises(NotImplementedError, match="in_list"):
         tserde.parse_expr(node)
     with pytest.raises(NotImplementedError, match="negative"):
         tserde.parse_expr(tpb.ExprNode(unary=tpb.UnaryE(
@@ -134,6 +139,23 @@ def _pruned(session, tables, dsl):
             .agg(dsl.functions.max(dsl.col("ss_quantity")).alias("top")))
 
 
+def _full_sort(session, tables, dsl):
+    """q02 without its limit, in either package's DSL: the full sort
+    through a range exchange."""
+    return (session.read_parquet(tables["store_sales"], partitions=4)
+            .group_by("ss_customer_sk")
+            .agg(dsl.functions.sum(dsl.col("ss_net_paid")).alias("revenue"))
+            .sort(dsl.col("revenue").desc(), dsl.col("ss_customer_sk").asc()))
+
+
+def _keyless(session, tables, dsl):
+    """A global aggregate over 4 partitions: partial → single exchange →
+    final."""
+    return (session.read_parquet(tables["store_sales"], partitions=4)
+            .group_by()
+            .agg(dsl.functions.sum(dsl.col("ss_quantity")).alias("q")))
+
+
 @pytest.fixture(scope="module")
 def task_bytes(tmp_path_factory):
     """Each query's task bytes from both packages' DataFrames."""
@@ -145,18 +167,26 @@ def task_bytes(tmp_path_factory):
     with mock.patch.object(rdf.DataFrame, "collect",
                            lambda self, *a, **k: self):
         ref = {"q01": rqueries.q01_dataframe(rs, tables),
+               "q02": rqueries._q02_run(rs, tables),
                "q10": rqueries._q10_run(rs, tables),
                "q11": rqueries._q11_run(rs, tables),
+               "q12": rqueries._q12_run(rs, tables),
                "q13": rqueries._q13_run(rs, tables),
+               "q02_full_sort": _full_sort(rs, tables, rdf),
+               "keyless": _keyless(rs, tables, rdf),
                "store_quantity": rs.from_arrow(table)
                .group_by("ss_store_sk")
                .agg(F.count_star().alias("n"),
                     F.sum(rdf.col("ss_quantity")).alias("qty")),
                "pruned": _pruned(rs, tables, rdf)}
     port = {"q01": tqueries.q01_dataframe(ts, tables),
+            "q02": tqueries.q02_dataframe(ts, tables),
             "q10": tqueries.q10_dataframe(ts, tables),
             "q11": tqueries.q11_dataframe(ts, tables),
+            "q12": tqueries.q12_dataframe(ts, tables),
             "q13": tqueries.q13_dataframe(ts, tables),
+            "q02_full_sort": tqueries.q02_dataframe(ts, tables, limit=None),
+            "keyless": _keyless(ts, tables, tdf),
             "store_quantity": tqueries.store_quantity_dataframe(ts, table),
             "pruned": _pruned(ts, tables, tdf)}
     return {n: (port[n].task_bytes(), ref[n].task_bytes(),

@@ -12,6 +12,11 @@ in-memory query ``store_quantity_dataframe`` run through
   group's sum of |v| (means within that over the group's rows);
 - both results agree with the pandas oracle under the port's
   ``QueryResultComparator``;
+- at scale 0.1 (seed 7), q02 and q12 (top-k), q02's full sort over 4
+  partitions (a range exchange) and a keyless aggregate give the
+  reference Session's rows in the same order, every value identical
+  (the sums of one group arrive in the same order in both packages),
+  and the keyless aggregate gives the reference's ``[{'q': 119671}]``;
 - a Session or an Arrow scan built without a device raises where CUDA is
   absent.
 """
@@ -186,3 +191,78 @@ def test_entry_points_without_a_device_raise_without_cuda(data,
         ParquetScanOp(tables["store_sales"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MemoryScanOp([table.to_batches()], schema_from_arrow(table.schema))
+
+
+SORT_SCALE, SORT_SEED = 0.1, 7
+SORT_NAMES = ("q02", "q12", "q02_full_sort", "keyless")
+
+
+def _sort_dataframes(session, tables, dsl, queries) -> dict:
+    """q02, q12, q02 without its limit and a keyless aggregate, in either
+    package's DSL (the reference's query functions collect: their
+    ``collect`` is patched to return the DataFrame)."""
+    sales = session.read_parquet(tables["store_sales"], partitions=4)
+    out = {"q02_full_sort": sales.group_by("ss_customer_sk").agg(
+        dsl.functions.sum(dsl.col("ss_net_paid")).alias("revenue")).sort(
+        dsl.col("revenue").desc(), dsl.col("ss_customer_sk").asc()),
+        "keyless": sales.group_by().agg(
+            dsl.functions.sum(dsl.col("ss_quantity")).alias("q"))}
+    if queries is rqueries:
+        with mock.patch.object(rdf.DataFrame, "collect",
+                               lambda self, *a, **k: self):
+            out.update(q02=rqueries._q02_run(session, tables),
+                       q12=rqueries._q12_run(session, tables))
+    else:
+        out.update(q02=tqueries.q02_dataframe(session, tables),
+                   q12=tqueries.q12_dataframe(session, tables))
+    return out
+
+
+@pytest.fixture(scope="module")
+def sort_results(tmp_path_factory):
+    """{name: (port table, reference table)} and the pandas table."""
+    from auron_tpu_torch.frontend import dataframe as tdf
+    root = str(tmp_path_factory.mktemp("tpcds_sort"))
+    tables = {"store_sales": rdata.generate(root, SORT_SCALE,
+                                            SORT_SEED)["store_sales"]}
+    rs = RSession(config=rcfg.AuronConfig(
+        {rcfg.SCAN_BATCH_ROWS: BATCH_ROWS}))
+    ts = TSession(config=tcfg.AuronConfig(
+        {tcfg.SCAN_BATCH_ROWS: BATCH_ROWS}), device="cpu")
+    ref = _sort_dataframes(rs, tables, rdf, rqueries)
+    port = _sort_dataframes(ts, tables, tdf, tqueries)
+    for name in SORT_NAMES:
+        assert port[name].task_bytes() == ref[name].task_bytes(), name
+    pdf = pa.concat_tables(pq.read_table(f)
+                           for f in tables["store_sales"]).to_pandas()
+    return {n: (port[n].collect(), ref[n].collect())
+            for n in SORT_NAMES}, pdf
+
+
+@pytest.mark.parametrize("name", SORT_NAMES)
+def test_sorts_equal_reference_session_in_order(name, sort_results):
+    got, want = sort_results[0][name]
+    assert got.schema == want.schema
+    assert got.num_rows == want.num_rows > 0
+    assert got.equals(want), name
+    if name == "keyless":
+        assert got.to_pylist() == [{"q": 119671}]
+    if name == "q02_full_sort":
+        pdf = sort_results[1]
+        assert got.num_rows == pdf.ss_customer_sk.nunique()
+
+
+@pytest.mark.parametrize("name", ["q02", "q12"])
+def test_top_k_matches_the_pandas_oracle_in_order(name, sort_results):
+    """The sort keys in the oracle's order (pandas sorts the same float
+    values, so the keys are identical), the other columns within the
+    comparator's tolerance."""
+    got = sort_results[0][name][0]
+    query = {q.name.split("_")[0]: q for q in tqueries.QUERIES}[name]
+    want = query.expected({"store_sales": sort_results[1]})
+    keys = {"q02": "ss_customer_sk", "q12": "ss_item_sk"}[name]
+    assert got[keys].to_pylist() == want[keys].to_pylist()
+    np.testing.assert_allclose(got["revenue"].to_numpy(),
+                               want["revenue"].to_numpy(), rtol=1e-12)
+    res = QueryResultComparator().compare(name, got, want)
+    assert res.ok, res.report()
