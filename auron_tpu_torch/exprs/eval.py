@@ -59,6 +59,10 @@ _INT_BITS = {DataType.INT8: 8, DataType.INT16: 16, DataType.INT32: 32,
 #: types whose casts the numeric arm of ``cast_value`` covers
 _NUMERIC_CAST = frozenset(_RANK) | {DataType.BOOL}
 
+#: field types ``null_column_for_field`` pads with a primitive column
+_PRIMITIVE_FIELDS = _NUMERIC_CAST | {DataType.DATE32, DataType.TIMESTAMP_US,
+                                     DataType.NULL}
+
 _COMPARE = {"==": torch.eq, "!=": torch.ne, "<": torch.lt,
             "<=": torch.le, ">": torch.gt, ">=": torch.ge}
 
@@ -97,6 +101,21 @@ def _const_column(value, dtype: DataType, capacity: int,
     return PrimitiveColumn(
         torch.full((capacity,), value, dtype=tdt, device=device),
         torch.ones(capacity, dtype=torch.bool, device=device))
+
+
+def null_column_for_field(field: Field, cap: int,
+                          device: torch.device) -> PrimitiveColumn:
+    """An all-null column of ``cap`` rows shaped for ``field``: the
+    padding of outer joins. Primitive fields only; string, decimal and
+    nested fields come with those columns."""
+    if field.dtype not in _PRIMITIVE_FIELDS:
+        raise NotImplementedError(
+            f"null column of {field.dtype.value}: the port carries "
+            "primitive columns only (strings: ROADMAP item 16c, decimals: "
+            "16d, nested types: 16f)")
+    return PrimitiveColumn(
+        torch.zeros(cap, dtype=field.dtype.to_torch(), device=device),
+        torch.zeros(cap, dtype=torch.bool, device=device))
 
 
 def evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,

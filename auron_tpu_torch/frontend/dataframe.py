@@ -5,8 +5,14 @@ transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
 query; what the port cannot plan yet (IN lists, string predicates,
-scalar functions, DISTINCT aggregates, joins, windows, host functions)
-raises ``NotImplementedError`` or is absent.
+scalar functions, DISTINCT aggregates, windows, host functions) raises
+``NotImplementedError`` or is absent.
+
+Each DataFrame carries the reference's ``partitioning`` provenance, the
+layout its partitions are known to have. It never enters the task
+bytes, but ``join`` reads it to choose between a co-partitioned hash
+join and a broadcast build side, so it follows the reference's through
+every transform.
 """
 
 from __future__ import annotations
@@ -221,6 +227,7 @@ class GroupedData:
         n_part = self.df.num_partitions
 
         out_partitions = n_part
+        out_prov = self.df.partitioning
         if n_part > 1:
             partial = pb.PlanNode(agg=pb.AggNode(
                 child=self.df.plan,
@@ -233,9 +240,11 @@ class GroupedData:
                     kind="hash", num_partitions=n_part,
                     hash_keys=[serde.expr_to_proto(ir.ColumnRef(i))
                                for i in range(n_keys)])
+                out_prov = ("hash", tuple(group_names), n_part)
             else:
                 part = pb.PartitioningP(kind="single", num_partitions=1)
                 out_partitions = 1
+                out_prov = ("single",)
             shuffle = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
                 child=partial, partitioning=part, input_partitions=n_part))
             node = pb.PlanNode(agg=pb.AggNode(
@@ -262,16 +271,20 @@ class GroupedData:
             dt, p, s = make_acc_spec(a, schema, "complete").result
             fields.append(Field(nm, dt, True, p, s))
         return DataFrame(self.df.session, node, Schema(tuple(fields)),
-                         out_partitions)
+                         out_partitions, out_prov)
 
 
 class DataFrame:
     def __init__(self, session, plan: pb.PlanNode, schema: Schema,
-                 num_partitions: int = 1):
+                 num_partitions: int = 1, partitioning=None):
         self.session = session
         self.plan = plan
         self.schema = schema
         self.num_partitions = num_partitions
+        #: output-partitioning provenance: ("hash", (key names...), n)
+        #: after a hash exchange on those keys, ("single",) after a
+        #: coalescing one, else None (layout unknown)
+        self.partitioning = partitioning
 
     # -- transforms ---------------------------------------------------------
 
@@ -279,8 +292,25 @@ class DataFrame:
         e = resolve(cond, self.schema)
         node = pb.PlanNode(filter=pb.FilterNode(
             child=self.plan, predicates=[serde.expr_to_proto(e)]))
+        # row-preserving: the partition layout survives a filter
         return DataFrame(self.session, node, self.schema,
-                         self.num_partitions)
+                         self.num_partitions, self.partitioning)
+
+    def _project_provenance(self, exprs, names):
+        """Hash provenance survives a projection when every key column
+        passes through as a column reference; a renamed key carries its
+        new name."""
+        prov = self.partitioning
+        if not prov or prov[0] != "hash":
+            return None
+        renames = {}
+        for e, nm in zip(exprs, names):
+            if isinstance(e, ir.ColumnRef):
+                renames.setdefault(self.schema[e.index].name, nm)
+        try:
+            return ("hash", tuple(renames[k] for k in prov[1]), prov[2])
+        except KeyError:
+            return None
 
     def select(self, *cols: Union[str, Col]) -> "DataFrame":
         cs = [col(c) if isinstance(c, str) else c for c in cols]
@@ -294,7 +324,8 @@ class DataFrame:
             dt, p, s = infer_dtype(e, self.schema)
             fields.append(Field(nm, dt, True, p, s))
         return DataFrame(self.session, node, Schema(tuple(fields)),
-                         self.num_partitions)
+                         self.num_partitions,
+                         self._project_provenance(exprs, names))
 
     def with_column(self, name: str, c: Col) -> "DataFrame":
         existing = [col(f.name) for f in self.schema]
@@ -328,12 +359,14 @@ class DataFrame:
                      for s in self._to_sort_orders(orders)]
         child = self.plan
         out_partitions = self.num_partitions
+        prov = None
         if self.num_partitions > 1:
             if limit is not None:
                 child = pb.PlanNode(sort=pb.SortNode(
                     child=child, sort_orders=so_protos, fetch=limit))
                 part = pb.PartitioningP(kind="single", num_partitions=1)
                 out_partitions = 1
+                prov = ("single",)
             else:
                 part = pb.PartitioningP(kind="range",
                                         num_partitions=self.num_partitions,
@@ -344,13 +377,15 @@ class DataFrame:
         node = pb.PlanNode(sort=pb.SortNode(
             child=child, sort_orders=so_protos,
             fetch=-1 if limit is None else limit))
-        return DataFrame(self.session, node, self.schema, out_partitions)
+        return DataFrame(self.session, node, self.schema, out_partitions,
+                         prov)
 
     order_by = sort
 
     def limit(self, n: int) -> "DataFrame":
         child = self.plan
         out_partitions = self.num_partitions
+        prov = self.partitioning
         if self.num_partitions > 1:
             # LIMIT is global: a map-side limit caps each partition at n
             # rows, a coalescing exchange gathers them, and the global
@@ -362,8 +397,10 @@ class DataFrame:
                                               num_partitions=1),
                 input_partitions=self.num_partitions))
             out_partitions = 1
+            prov = ("single",)
         node = pb.PlanNode(limit=pb.LimitNode(child=child, limit=n))
-        return DataFrame(self.session, node, self.schema, out_partitions)
+        return DataFrame(self.session, node, self.schema, out_partitions,
+                         prov)
 
     def union(self, other: "DataFrame") -> "DataFrame":
         if other.num_partitions != self.num_partitions:
@@ -373,8 +410,63 @@ class DataFrame:
                 "repartition one side first")
         node = pb.PlanNode(union=pb.UnionNode(
             children=[self.plan, other.plan]))
+        # the layout of a union is unknown: no provenance
         return DataFrame(self.session, node, self.schema,
                          self.num_partitions)
+
+    def _co_partitioned_with(self, other: "DataFrame", keys: list) -> bool:
+        """True when probe partition p needs only build partition p: both
+        sides single-partition, or both hash-partitioned on exactly the
+        join keys into the same number of partitions."""
+        if self.num_partitions == 1 and other.num_partitions == 1:
+            return True
+        a, b = self.partitioning, other.partitioning
+        return (a is not None and b is not None
+                and a[0] == "hash" and b[0] == "hash"
+                and a[1] == b[1] == tuple(keys)
+                and a[2] == b[2] == self.num_partitions
+                == other.num_partitions)
+
+    def join(self, other: "DataFrame", on: Union[str, Sequence[str]],
+             how: str = "inner") -> "DataFrame":
+        """An equi-join on the columns ``on`` (named alike on both
+        sides); ``how`` is inner, left, right, full, semi, anti or
+        existence. Sides that are not co-partitioned get a broadcast
+        build side: ``other`` is collected once and replayed to every
+        partition of this one. Inner and outer joins keep one copy of
+        each key, this side's (SQL ``USING``); an unmatched row of
+        ``other`` gets a null key there, as in the reference."""
+        keys = [on] if isinstance(on, str) else list(on)
+        pk = [serde.expr_to_proto(resolve(col(k), self.schema))
+              for k in keys]
+        bk = [serde.expr_to_proto(resolve(col(k), other.schema))
+              for k in keys]
+        build_plan = other.plan
+        if not self._co_partitioned_with(other, keys):
+            build_plan = pb.PlanNode(
+                broadcast_exchange=pb.BroadcastExchangeNode(
+                    child=other.plan,
+                    input_partitions=other.num_partitions))
+        node = pb.PlanNode(hash_join=pb.HashJoinNode(
+            probe=self.plan, build=build_plan, probe_keys=pk,
+            build_keys=bk, join_type=how))
+        if how in ("semi", "anti"):
+            return DataFrame(self.session, node, self.schema,
+                             self.num_partitions, self.partitioning)
+        if how == "existence":
+            out = Schema(tuple(self.schema.fields)
+                         + (Field("exists", DataType.BOOL, False),))
+            return DataFrame(self.session, node, out, self.num_partitions,
+                             self.partitioning)
+        # USING-style: the build side's key columns are dropped
+        raw = Schema(tuple(self.schema.fields) + tuple(other.schema.fields))
+        p = len(self.schema)
+        keep = list(range(p)) + [p + i for i, f in enumerate(other.schema)
+                                 if f.name not in keys]
+        joined = DataFrame(self.session, node, raw, self.num_partitions,
+                           self.partitioning)
+        return joined.select(*[Col(ir.ColumnRef(i, raw[i].name),
+                                   raw[i].name) for i in keep])
 
     def repartition(self, n: int, *keys: Union[str, Col]) -> "DataFrame":
         if keys:
@@ -383,12 +475,14 @@ class DataFrame:
                 kind="hash", num_partitions=n,
                 hash_keys=[serde.expr_to_proto(resolve(k, self.schema))
                            for k in ks])
+            prov = ("hash", tuple(k.out_name() for k in ks), n)
         else:
             part = pb.PartitioningP(kind="round_robin", num_partitions=n)
+            prov = ("single",) if n == 1 else None
         node = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
             child=self.plan, partitioning=part,
             input_partitions=self.num_partitions))
-        return DataFrame(self.session, node, self.schema, n)
+        return DataFrame(self.session, node, self.schema, n, prov)
 
     # -- actions ------------------------------------------------------------
 

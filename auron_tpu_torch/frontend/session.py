@@ -20,7 +20,6 @@ import itertools
 from typing import Optional
 
 from auron_tpu_torch import resolve_device
-from auron_tpu_torch.columnar.schema import Schema
 from auron_tpu_torch.frontend.dataframe import DataFrame
 from auron_tpu_torch.ir import auron_pb2 as pb
 from auron_tpu_torch.ir.planner import PlannerContext, plan_from_bytes
@@ -58,19 +57,21 @@ class Session:
                      partitions: Optional[int] = None) -> DataFrame:
         """``partitions`` sets the scan parallelism (files are split
         round-robin across partitions, like Spark input splits); default
-        1."""
+        1. With ``columns`` only those are read, in the order asked for,
+        so a file may hold columns of types the port does not carry."""
+        import pyarrow as pa
         import pyarrow.parquet as pq
         from auron_tpu_torch.columnar.arrow_bridge import schema_from_arrow
         files = [files] if isinstance(files, str) else list(files)
         node = pb.PlanNode(parquet_scan=pb.ParquetScanNode(
             files=files, columns=columns or []))
-        schema = schema_from_arrow(pq.read_schema(files[0]))
+        arrow = pq.read_schema(files[0])
         if columns:
-            # requested order, not file order: the scan emits columns in
-            # the order they were asked for
-            schema = Schema(tuple(schema[schema.index_of(c)]
-                                  for c in columns))
-        return DataFrame(self, node, schema, num_partitions=partitions or 1)
+            # pruned before conversion: the other columns' types are
+            # never asked about
+            arrow = pa.schema([arrow.field(c) for c in columns])
+        return DataFrame(self, node, schema_from_arrow(arrow),
+                         num_partitions=partitions or 1)
 
     # -- execution ----------------------------------------------------------
 

@@ -2,10 +2,12 @@
 
 The port of ``auron_tpu.ir.planner`` for the nodes the port has
 operators for: the parquet, memory and empty-partitions scans, filter,
-project, agg, sort, limit, union, coalesce, rename and the shuffle
-writer (hash, round-robin, single and range) on its host route. Every
-other node raises ``NotImplementedError`` naming it. Scans run on the
-context's device.
+project, agg, sort, limit, union, coalesce, rename, the hash join, the
+broadcast exchange and the shuffle writer (hash, round-robin, single
+and range) on its host route. The sort-merge and broadcast joins raise
+``NotImplementedError`` naming the items that bring them, and so does a
+broadcast exchange that publishes its output as a resource; every other
+node raises naming itself. Scans run on the context's device.
 
 After planning, ``fuse_stages`` chains row-local operators into
 ``FusedStageOp``s as the reference's pass does. Two of the reference's
@@ -263,7 +265,37 @@ class PhysicalPlanner:
         from auron_tpu_torch.ops.limit import RenameColumnsOp
         return RenameColumnsOp(self.create_plan(n.child), list(n.names))
 
+    # -- joins --------------------------------------------------------------
+
+    def _plan_hash_join(self, n: pb.HashJoinNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.joins import HashJoinOp
+        return HashJoinOp(
+            self.create_plan(n.probe), self.create_plan(n.build),
+            [serde.parse_expr(e) for e in n.probe_keys],
+            [serde.parse_expr(e) for e in n.build_keys],
+            join_type=n.join_type or "inner")
+
+    def _plan_sort_merge_join(self, n: pb.SortMergeJoinNode) -> PhysicalOp:
+        raise NotImplementedError(
+            "plan node 'sort_merge_join': SortMergeJoinOp comes with ROADMAP "
+            "item 16f")
+
+    def _plan_broadcast_join(self, n: pb.BroadcastJoinNode) -> PhysicalOp:
+        raise NotImplementedError(
+            "plan node 'broadcast_join': its build side is a planner "
+            "resource, and the resource map comes with ROADMAP item 20")
+
     # -- exchange -----------------------------------------------------------
+
+    def _plan_broadcast_exchange(self, n: pb.BroadcastExchangeNode
+                                 ) -> PhysicalOp:
+        from auron_tpu_torch.parallel.exchange import BroadcastExchangeOp
+        if n.output_resource_id:
+            raise NotImplementedError(
+                "broadcast_exchange with an output_resource_id: the "
+                "planner's resource map comes with ROADMAP item 20")
+        return BroadcastExchangeOp(self.create_plan(n.child),
+                                   input_partitions=n.input_partitions or 1)
 
     def _parse_partitioning(self, p: pb.PartitioningP):
         from auron_tpu_torch.parallel.partitioning import (
@@ -328,9 +360,10 @@ def _normalize(op: PhysicalOp) -> PhysicalOp:
 
 
 def _wrap_single(child: PhysicalOp) -> PhysicalOp:
-    """Wrap a lone computing fusable op under an exchange in a stage of
-    its own, as the reference does for its split program. Pass-through
-    ops (limit/rename) stay bare."""
+    """Wrap a lone computing fusable op under an exchange or as a hash
+    join's probe in a stage of its own, as the reference does for its
+    split and probe programs. Pass-through ops (limit/rename) stay
+    bare."""
     from auron_tpu_torch.ops.fused import FusedStageOp
     if child.fusable and child.fragment_computes \
             and not isinstance(child, FusedStageOp):
@@ -340,10 +373,14 @@ def _wrap_single(child: PhysicalOp) -> PhysicalOp:
 
 def _fuse(op: PhysicalOp, max_ops: int) -> PhysicalOp:
     from auron_tpu_torch.ops.fused import FusedStageOp
+    from auron_tpu_torch.ops.joins import HashJoinOp
     from auron_tpu_torch.parallel.exchange import ShuffleExchangeOp
-    if isinstance(op, ShuffleExchangeOp):
+    if isinstance(op, (ShuffleExchangeOp, HashJoinOp)):
         _replace_children(op, lambda c: _fuse(c, max_ops))
-        op.child = _wrap_single(op.child)
+        if isinstance(op, ShuffleExchangeOp):
+            op.child = _wrap_single(op.child)
+        else:
+            op.probe = _wrap_single(op.probe)
         return op
     if op.fusable:
         # the maximal chain op → … → deepest fusable descendant

@@ -3,12 +3,15 @@
 The same draws in the same order from the same seed, so a scale and a
 seed give the reference's tables. Split in two:
 
-- ``store_sales_columns(scale, seed)``: the fact table as numpy
-  ``(values, validity)`` pairs, numpy only, so the card can make the
-  data without pyarrow;
+- ``draw_tables(scale, seed)``: every table's columns, numpy only (the
+  dimensions' strings as numpy or python strings), and
+  ``store_sales_columns(scale, seed)``: the fact table as numpy
+  ``(values, validity)`` pairs, so the card can make the data without
+  pyarrow;
 - ``generate(root, scale, seed)``: writes the reference's five tables
-  as parquet (4 fact files, split at ``fact_file_bounds``), importing
-  pyarrow inside.
+  as parquet (4 fact files, split at ``fact_file_bounds``), and
+  ``write_store_sales`` / ``write_dimensions`` write the tables of one
+  draw, importing pyarrow inside.
 
 ``q01_oracle`` is the q01 query in numpy: per ``ss_store_sk`` over rows
 with ``ss_quantity > 5``, the float64 sum of ``ss_sales_price``, the
@@ -44,7 +47,7 @@ def sizes(scale: float) -> dict:
             "dates": 730}
 
 
-def _draw(scale: float, seed: int) -> dict:
+def draw_tables(scale: float, seed: int) -> dict:
     """Every table's columns, drawn in the reference's order: customer,
     item, store, then the fact table. Dimension strings are built as the
     reference builds them."""
@@ -100,7 +103,7 @@ def _draw(scale: float, seed: int) -> dict:
 def store_sales_columns(scale: float = 1.0, seed: int = 42
                         ) -> dict[str, tuple[np.ndarray, np.ndarray]]:
     """The fact table: {column: (values, validity)} in file order."""
-    return _draw(scale, seed)["store_sales"]
+    return draw_tables(scale, seed)["store_sales"]
 
 
 def fact_file_bounds(rows: int, n_files: int = FACT_FILES
@@ -131,22 +134,38 @@ def write_store_sales(root: str, fact: dict) -> list[str]:
     return files
 
 
-def generate(root: str, scale: float = 1.0, seed: int = 42) -> dict:
-    """Write the dataset under ``root`` as the reference does; returns
-    {table: [files]}."""
+DIMENSIONS = ("customer", "item", "store", "date_dim")
+
+_STRING_COLUMNS = frozenset({"c_email", "c_state", "i_category", "i_brand",
+                             "s_state"})
+
+
+def write_dimensions(root: str, tables: dict,
+                     names=DIMENSIONS) -> dict[str, list[str]]:
+    """The dimension tables ``names`` of one ``draw_tables`` as the
+    reference's parquet files (one per table) under ``root``; returns
+    {table: [file]}."""
     import pyarrow as pa
     import pyarrow.parquet as pq
-    tables = _draw(scale, seed)
-    out = {"store_sales": write_store_sales(root, tables["store_sales"])}
-    string_cols = {"c_email", "c_state", "i_category", "i_brand", "s_state"}
-    for name in ("customer", "item", "store", "date_dim"):
-        tbl = pa.table({c: pa.array(list(v) if c in string_cols else v,
-                                    pa.string() if c in string_cols
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for name in names:
+        tbl = pa.table({c: pa.array(list(v) if c in _STRING_COLUMNS else v,
+                                    pa.string() if c in _STRING_COLUMNS
                                     else None)
                         for c, v in tables[name].items()})
         path = os.path.join(root, f"{name}_0.parquet")
         pq.write_table(tbl, path)
         out[name] = [path]
+    return out
+
+
+def generate(root: str, scale: float = 1.0, seed: int = 42) -> dict:
+    """Write the dataset under ``root`` as the reference does; returns
+    {table: [files]}."""
+    tables = draw_tables(scale, seed)
+    out = {"store_sales": write_store_sales(root, tables["store_sales"])}
+    out.update(write_dimensions(root, tables))
     return out
 
 

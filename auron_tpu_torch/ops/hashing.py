@@ -99,6 +99,21 @@ def nan_aware_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return same
 
 
+def pairwise_eq(pc: PrimitiveColumn, probe_idx: torch.Tensor,
+                bc: PrimitiveColumn, build_idx: torch.Tensor) -> torch.Tensor:
+    """Value equality of ``pc[probe_idx]`` and ``bc[build_idx]`` under
+    Spark key semantics (NaN == NaN, -0.0 == 0.0). Validity is not
+    included: equi-join null keys never match, and the caller applies
+    that rule."""
+    for c in (pc, bc):
+        if not isinstance(c, PrimitiveColumn):
+            raise NotImplementedError(
+                f"join keys of {type(c).__name__}: the port compares "
+                "primitive columns only; string keys come with ROADMAP "
+                "item 16c, decimal128 with 16d, struct with 16f")
+    return nan_aware_eq(pc.data[probe_idx], bc.data[build_idx])
+
+
 def adjacent_eq(col: PrimitiveColumn) -> torch.Tensor:
     """bool[cap-1]: row i equals row i-1 under Spark key semantics —
     null == null, NaN == NaN."""

@@ -16,9 +16,14 @@ the sampled batches go first into the split.
 
 Host syncs: one readback of the per-partition counts per input batch;
 a range exchange also reads each sampled batch's row count and copies
-the sampled rows' sort words to the host once. Spill to host storage,
-the mesh (all-to-all) route, map-side combine and the RSS and broadcast
-exchanges wait for later slices.
+the sampled rows' sort words to the host once.
+
+``BroadcastExchangeOp`` collects its child once, over every input
+partition, and replays the same batch objects to every consumer
+partition (the build side of a join whose sides are not
+co-partitioned); it makes no host sync. Spill to host storage, the mesh
+(all-to-all) route, map-side combine, the RSS exchange and the
+broadcast's subplan cache wait for later slices.
 """
 
 from __future__ import annotations
@@ -99,6 +104,25 @@ class _ExchangeBuffer:
             self.entries = []
 
 
+def _map_batches(child: PhysicalOp, input_partitions: int,
+                 ctx: ExecContext) -> Iterator[DeviceBatch]:
+    """Every batch of ``child`` over its input partitions, each map task
+    in a context of its own."""
+    for in_p in range(input_partitions):
+        map_ctx = ctx.child(partition_id=in_p,
+                            num_partitions=input_partitions)
+        for b in child.execute(in_p, map_ctx):
+            map_ctx.check_cancelled()
+            yield b
+
+
+def _refuse_memory_manager(ctx: ExecContext, op: str) -> None:
+    if ctx.mem_manager is not None:
+        raise NotImplementedError(
+            f"{op} with a memory manager: the exchange's spill is not "
+            "ported")
+
+
 class ShuffleExchangeOp(PhysicalOp):
     name = "shuffle_exchange"
 
@@ -123,22 +147,11 @@ class ShuffleExchangeOp(PhysicalOp):
 
     # -- map side -----------------------------------------------------------
 
-    def _input_batches(self, ctx: ExecContext) -> Iterator[DeviceBatch]:
-        for in_p in range(self.input_partitions):
-            map_ctx = ctx.child(partition_id=in_p,
-                                num_partitions=self.input_partitions)
-            for b in self.child.execute(in_p, map_ctx):
-                map_ctx.check_cancelled()
-                yield b
-
     def _materialize(self, ctx: ExecContext) -> _ExchangeBuffer:
         """Run all map tasks; ONE sort-by-pid compaction per batch."""
         metrics = ctx.metrics_for(self)
         write_time = metrics.counter("shuffle_write_total_time")
-        if ctx.mem_manager is not None:
-            raise NotImplementedError(
-                "ShuffleExchangeOp with a memory manager: the exchange's "
-                "spill is not ported")
+        _refuse_memory_manager(ctx, "ShuffleExchangeOp")
         buffer = _ExchangeBuffer()
         try:
             self._fill_buffer(ctx, buffer, write_time)
@@ -160,7 +173,7 @@ class ShuffleExchangeOp(PhysicalOp):
                 f"{type(partitioning).__name__}: not ported")
         sync = ctx.device_sync
         live_bytes = ctx.metrics_for(self).counter("shuffle_bytes_live")
-        batches = self._input_batches(ctx)
+        batches = _map_batches(self.child, self.input_partitions, ctx)
         pending: list[DeviceBatch] = []
         if isinstance(partitioning, RangePartitioning) \
                 and not partitioning.bounds:
@@ -224,3 +237,35 @@ class ShuffleExchangeOp(PhysicalOp):
     def __repr__(self):
         return (f"ShuffleExchangeOp[{type(self.partitioning).__name__} "
                 f"{self.input_partitions}->{self.num_partitions}]")
+
+
+class BroadcastExchangeOp(PhysicalOp):
+    """Collect the child once, over all ``input_partitions``, and replay
+    the same batches to every consumer partition. A consumer must not
+    write into them: ``owns_output`` is False."""
+
+    name = "broadcast_exchange"
+    owns_output = False
+
+    def __init__(self, child: PhysicalOp, input_partitions: int = 1):
+        self.child = child
+        self.input_partitions = input_partitions
+        self._lock = threading.Lock()
+        self._batches: Optional[list[DeviceBatch]] = None
+
+    @property
+    def children(self):
+        return [self.child]
+
+    def schema(self) -> Schema:
+        return self.child.schema()
+
+    def execute(self, partition: int,
+                ctx: ExecContext) -> Iterator[DeviceBatch]:
+        _refuse_memory_manager(ctx, "BroadcastExchangeOp")
+        metrics = ctx.metrics_for(self)
+        with self._lock:
+            if self._batches is None:
+                self._batches = list(_map_batches(
+                    self.child, self.input_partitions, ctx))
+        return count_output(iter(self._batches), metrics, timed=True)

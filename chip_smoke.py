@@ -95,9 +95,31 @@ s. q01, q10, q11 and q13 of ``it/queries.py`` through
    and ascending), each held in order against a numpy oracle: exact keys
    identical, float64 sum keys within 1e-12 of the customer's sum of |v|
    with swaps allowed only between near-ties, and rows that tie on every
-   key in either order. Each query but the keyless one is timed (median
-   of 3 after the checked run), profiled once (device activity only)
-   and its host syncs per input batch counted.
+   key in either order. Each query but the keyless one is timed (one
+   run after the checked run: ``SESSION_RUNS``), profiled once (device
+   activity only) and its host syncs per input batch counted.
+
+Hash joins and the broadcast exchange through the same Session, run
+after phase s (phase p also writes the date_dim and item tables of its
+draw, 730 and 240,000 rows, beside its fact files):
+
+j. q05 (``it/queries.q05_dataframe``: date_dim of the year 2000 and
+   store_sales, each hash-exchanged on the date, a ``HashJoinOp`` per
+   partition, an aggregate by month) and its broadcast form (no
+   repartitions: the date_dim side goes through a
+   ``BroadcastExchangeOp`` to the 4 store_sales partitions), each
+   checked against a numpy oracle (months identical, totals within
+   1e-12 of the month's sum of |v|, the join's output rows equal to the
+   oracle's joined rows, the hash-run index on every build side); then
+   q09's anti and semi joins with a count (``cheap_sales_items_
+   dataframe``: the 240,000 items against the sales under $1, broadcast)
+   against numpy's counts. Each is timed, profiled and its syncs counted
+   as in phase s. Then, checked only: every join type over
+   co-partitioned sides at SF1 (``outer_join_dataframe``, written under
+   the same directory), each row multiset held against numpy, and the
+   right and full joins over a broadcast build side, held against the
+   reference's rows (``it.queries.BROADCAST_OUTER_ROWS``).
+   ``cuda_sum_count.launches`` stays 0 across the phase.
 
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
@@ -186,8 +208,14 @@ TABLE_ROWS, JOIN_KEYS = 1 << 20, 1 << 18
 PIPE_SCALE, PIPE_PARTITIONS, PIPE_ORDER_SCALE = 240, 4, 1
 #: timed queries per plan, after one warm-up
 PIPE_RUNS = 3
-#: timed queries per query of the Session phase, after the checked run
-SESSION_RUNS = 3
+#: timed queries per query of the Session and join phases, after the
+#: checked run: one, so that the script stays well inside its 1200 s on
+#: a slow host (three took it to 1201.1 s on one; PERF.md)
+SESSION_RUNS = 1
+#: the join phase's dimension tables at SF10, written beside the fact
+#: files; the scale of its checked-only joins (SF1's 2,880,000 rows)
+JOIN_DIMENSIONS = ("date_dim", "item")
+JOIN_CHECK_SCALE = 24
 #: the directory of the repo, under which the parquet run writes its files
 ROOT = Path(__file__).resolve().parent
 
@@ -1153,7 +1181,8 @@ def phase_pipeline(dev, seed: int, rate: float, root: str
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    cols = tpcds_data.store_sales_columns(PIPE_SCALE, seed)
+    drawn = tpcds_data.draw_tables(PIPE_SCALE, seed)
+    cols = drawn["store_sales"]
     gen_s = time.perf_counter() - t0
     rows = cols["ss_store_sk"][0].size
     stores = tpcds_data.sizes(PIPE_SCALE)["stores"]
@@ -1202,7 +1231,9 @@ def phase_pipeline(dev, seed: int, rate: float, root: str
     torch.cuda.empty_cache()
 
     for_session = {"cols": cols, "files": None, "sort_rows": sort_rows,
-                   "sort_plan": out["sort"]["plan"], "batches": batches}
+                   "sort_plan": out["sort"]["plan"], "batches": batches,
+                   "dims": {n: drawn[n] for n in JOIN_DIMENSIONS},
+                   "dim_files": None}
     try:
         import pyarrow  # noqa: F401
     except ImportError:
@@ -1214,6 +1245,9 @@ def phase_pipeline(dev, seed: int, rate: float, root: str
         return out, for_session
     t0 = time.perf_counter()
     files = tpcds_data.write_store_sales(root, cols)
+    # phase j's dimension tables beside the fact files, from the same draw
+    for_session["dim_files"] = tpcds_data.write_dimensions(
+        root, drawn, JOIN_DIMENSIONS)
     out["parquet_write_s"] = time.perf_counter() - t0
     # plan (a) over parquet is phase s's q01 (the same tree, checked
     # there): here its checked run only, so the script stays within
@@ -1507,18 +1541,20 @@ def run_session_query(label: str, make_df, verify, rows: int,
     batches = sum(sc["output_batches"] for sc in scans)
     scanned = sum(sc["output_rows"] for sc in scans)
     agg = metrics["agg"].snapshot() if "agg" in metrics else {}
+    join = metrics["hash_join"].snapshot() if "hash_join" in metrics \
+        else None
 
     def query():
         return make_df().collect()
 
     t_step = time.perf_counter()
-    runs = []
+    runs_ms = []
     for _ in range(SESSION_RUNS):
         t0 = time.perf_counter()
         query()
         torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(runs)
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(runs_ms)
     steps = {"timed_s": time.perf_counter() - t_step}
     t_step = time.perf_counter()
     prof = device_profile(query, iters=1, top=6, host_ops=False,
@@ -1526,13 +1562,16 @@ def run_session_query(label: str, make_df, verify, rows: int,
     steps["profile_s"] = time.perf_counter() - t_step
     out = {"rows": rows, "scanned_rows": scanned, "input_batches": batches,
            "plan_ms": plan_ms, "first_ms": first_ms, "ms": ms,
-           "runs_ms": runs, "rows_per_s": rows / (ms / 1e3),
+           "runs_ms": runs_ms, "rows_per_s": rows / (ms / 1e3),
            "host_syncs": syncs, "host_syncs_hash_table": hash_syncs,
            "host_syncs_per_batch": syncs / batches,
            "groups": table.num_rows, "check": worst,
            "partition_rows": sizes,
            "agg_paths": {k: v for k, v in agg.items()
                          if k.startswith("dispatch_")},
+           "join": None if join is None else {
+               k: v for k, v in join.items()
+               if k.startswith("dispatch_") or k == "output_rows"},
            "profile": prof, "steps_s": steps, "plan": tree,
            "table": table}
     log(f"session {label}: " + json.dumps(
@@ -1667,6 +1706,171 @@ def phase_session(dev, pipe: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# hash joins and the broadcast exchange, through the Session
+# ---------------------------------------------------------------------------
+
+def join_oracles(cols: dict, dims: dict) -> dict:
+    """q05, its broadcast form and q09's semi and anti joins in numpy
+    over the generated columns, in ``check_session_result``'s form.
+    q05: per month of the year 2000, the float64 sum of ss_sales_price
+    over the sales joined to its days, the sum of |v| (the tolerance's
+    scale) and the joined rows. q09: the items with (semi) and without
+    (anti) a sale under $1."""
+    dd = dims["date_dim"]
+    days = cols["ss_sold_date_sk"][0]
+    price = cols["ss_sales_price"][0]
+    # d_date_sk is the row number of date_dim
+    check(np.array_equal(dd["d_date_sk"], np.arange(dd["d_date_sk"].size)),
+          "date_dim: d_date_sk is the row number")
+    keep = dd["d_year"][days] == 2000
+    moy = dd["d_moy"][days[keep]]
+    months = np.flatnonzero(np.bincount(moy))
+    q05 = ({"d_moy": months,
+            "total": np.bincount(moy, weights=price[keep])[months]},
+           {"total": np.bincount(moy, weights=np.abs(price[keep]))[months]})
+    items = dims["item"]["i_item_sk"]
+    sold = np.isin(items, cols["ss_item_sk"][0][price < 1.0])
+    semi = int(sold.sum())
+    return {"q05": q05, "q05_joined_rows": int(keep.sum()),
+            "q09_semi": ({"n": np.array([semi])}, {}),
+            "q09_anti": ({"n": np.array([items.size - semi])}, {}),
+            "q09_build_rows": int((price < 1.0).sum())}
+
+
+def join_rows(table) -> "Counter":
+    """The multiset of a table's rows, nulls as None."""
+    from collections import Counter
+    names = table.column_names
+    return Counter(tuple(r[c] for c in names) for r in table.to_pylist())
+
+
+def outer_join_oracle(tables: dict, how: str) -> "Counter":
+    """``it.queries.outer_join_dataframe``'s rows in numpy, as a
+    multiset: store_sales rows of quantity 1 under $10 (item, customer,
+    net paid) joined on the item with the items under $150 (price). An
+    unmatched item row has a null ss_item_sk, as in the reference."""
+    from collections import Counter
+    ss, item = tables["store_sales"], tables["item"]
+    keep = (ss["ss_quantity"][0] == 1) & (ss["ss_sales_price"][0] < 10.0)
+    p_item = ss["ss_item_sk"][0][keep]
+    paid, paid_ok = (a[keep] for a in ss["ss_net_paid"])
+    probe = [(int(i), int(c), float(v) if ok else None) for i, c, v, ok in
+             zip(p_item, ss["ss_customer_sk"][0][keep], paid, paid_ok)]
+    b_keep = item["i_current_price"] < 150.0
+    price_of = dict(zip(item["i_item_sk"][b_keep].tolist(),
+                        item["i_current_price"][b_keep].tolist()))
+    hit = [r[0] in price_of for r in probe]
+    if how == "existence":
+        return Counter(r + (h,) for r, h in zip(probe, hit))
+    if how in ("semi", "anti"):
+        return Counter(r for r, h in zip(probe, hit) if h == (how == "semi"))
+    rows = Counter(r + (price_of[r[0]],) for r, h in zip(probe, hit) if h)
+    if how in ("left", "full"):
+        rows += Counter(r + (None,) for r, h in zip(probe, hit) if not h)
+    if how in ("right", "full"):
+        sold = set(p_item.tolist())
+        rows += Counter((None, None, None, p) for i, p in price_of.items()
+                        if i not in sold)
+    return rows
+
+
+def phase_joins(dev, pipe: dict, seed: int, root: str) -> dict:
+    """j. Hash joins and the broadcast exchange through the Session on
+    the card: q05 co-partitioned and over a broadcast build side, and
+    q09's anti and semi joins counted, over phase p's SF10 files and the
+    dimension files written beside them, each timed as phase s times its
+    queries; then every join type over co-partitioned sides at SF1 and
+    the right and full joins over a broadcast build side, checked
+    only."""
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+    from auron_tpu_torch.it import tpcds_data
+
+    t_phase = time.perf_counter()
+    check(pipe["dim_files"] is not None,
+          "the join phase reads parquet: pyarrow imports")
+    cols = pipe["cols"]
+    rows = cols["ss_store_sk"][0].size
+    t0 = time.perf_counter()
+    oracles = join_oracles(cols, pipe["dims"])
+    out = {"rows": rows, "oracle_s": time.perf_counter() - t0,
+           "item_rows": int(pipe["dims"]["item"]["i_item_sk"].size),
+           "q09_build_rows": oracles["q09_build_rows"]}
+    tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
+    session = Session(device=dev)
+    gagg.cuda_sum_count.launches = 0
+    timed = {
+        "q05": lambda: tq.q05_dataframe(session, tables),
+        "q05_broadcast": lambda: tq.q05_dataframe(session, tables,
+                                                  co_partitioned=False),
+        "q09_anti": lambda: tq.cheap_sales_items_dataframe(session, tables,
+                                                           "anti"),
+        "q09_semi": lambda: tq.cheap_sales_items_dataframe(session, tables,
+                                                           "semi"),
+    }
+    for name, make_df in timed.items():
+        oracle = oracles["q05" if name.startswith("q05") else name]
+        out[name] = run_session_query(
+            name, make_df, lambda t, _s, o=oracle, n=name:
+            check_session_result(t, o, n), rows)
+        join = out[name]["join"]
+        builds = 4 if name.startswith("q05") else 1
+        check(join is not None and sum(
+            v for k, v in join.items() if k.startswith("dispatch_"))
+            == builds, f"{name}: {builds} build sides, each counted: {join}")
+        if name.startswith("q05"):
+            check(join["output_rows"] == oracles["q05_joined_rows"],
+                  f"{name}: {join['output_rows']} joined rows, the oracle "
+                  f"has {oracles['q05_joined_rows']}")
+            check(join.get("dispatch_ht_index") == builds,
+                  f"{name}: every build side takes the hash-run index")
+        check(("BroadcastExchangeOp" in out[name]["plan"])
+              == (name != "q05"), f"{name}: the build side is broadcast "
+              "exactly where the sides are not co-partitioned")
+        del out[name]["table"]
+
+    # every join type over co-partitioned sides at SF1, checked only
+    t0 = time.perf_counter()
+    small = tpcds_data.draw_tables(JOIN_CHECK_SCALE, seed)
+    sf1 = str(Path(root) / "sf1")
+    sf1_tables = {"store_sales": tpcds_data.write_store_sales(
+        sf1, small["store_sales"]),
+        **tpcds_data.write_dimensions(sf1, small, ("item",))}
+    out["checked_data_s"] = time.perf_counter() - t0
+    out["checked"] = {}
+    for how in ("inner", "left", "right", "full", "semi", "anti",
+                "existence"):
+        t0 = time.perf_counter()
+        table = tq.outer_join_dataframe(session, sf1_tables, how).collect()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = outer_join_oracle(small, how)
+        check(join_rows(table) == want,
+              f"{how} join at SF1: the oracle's {sum(want.values())} rows "
+              f"as a multiset, got {table.num_rows}")
+        out["checked"][how] = {"rows": table.num_rows, "first_ms": ms}
+    inner = out["checked"]["inner"]["rows"]
+    check(all(out["checked"][h]["rows"] > inner
+              for h in ("left", "right", "full", "existence")),
+          "the outer and existence joins keep unmatched rows")
+    for how in ("right", "full"):
+        got = [tuple(r.values()) for r in tq.broadcast_outer_dataframe(
+            session, how).collect().to_pylist()]
+        check(got == tq.BROADCAST_OUTER_ROWS[how],
+              f"{how} join over a broadcast build side: the reference's "
+              f"rows in its order, got {got}")
+        out["checked"][f"broadcast_{how}"] = {"rows": len(got)}
+    log(f"joins checked: {json.dumps(out['checked'])}")
+
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    check(out["cuda_sum_count_launches"] == 0,
+          "no cuda_dense_sum_count launch on the join path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"join phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -1686,6 +1890,7 @@ def main() -> int:
     try:
         pipeline, pipe = phase_pipeline(dev, args.seed, rate, root)
         session = phase_session(dev, pipe)
+        joins = phase_joins(dev, pipe, args.seed, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del pipe
@@ -1710,7 +1915,8 @@ def main() -> int:
             "pipeline_sort": pipeline["sort"]["cuda_sum_count_launches"],
             "pipeline_dense": pipeline["dense"][
                 "cuda_sum_count_launches"],
-            "session": session["cuda_sum_count_launches"]},
+            "session": session["cuda_sum_count_launches"],
+            "joins": joins["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -1728,7 +1934,7 @@ def main() -> int:
             cmp["shapes"]["single_group"])[default],
     }
     report = {"build_s": build_s, "stages": other["stages"],
-              "pipeline": pipeline, "session": session,
+              "pipeline": pipeline, "session": session, "joins": joins,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

@@ -6,11 +6,13 @@ repr, mode, keys, aggregates, sort orders and fetch, partitioning,
 ``key_domain``, scan fields, fused members), with
 ``auron.fusion.enabled`` on and off, for q01, q02, q10, q11, q12, q13,
 q02's full sort (a range exchange), a keyless aggregate, the in-memory
-query, a filtered global limit, a scan of two columns, and a rename
-over a coalesce over a limit. The dense key domain the planner
-derives over an in-memory table equals the reference's, and is None on
-a float sum. Nodes the port has no operator for raise
-``NotImplementedError`` naming them.
+query, a filtered global limit, a scan of two columns, a rename over a
+coalesce over a limit, and the join queries of ``torch_join_cases``
+(hash joins over hash exchanges and over broadcast exchanges, a
+filtered probe side wrapped in a stage of its own). The dense key
+domain the planner derives over an in-memory table equals the
+reference's, and is None on a float sum. Nodes the port has no
+operator for raise ``NotImplementedError`` naming them.
 """
 
 from unittest import mock
@@ -31,10 +33,11 @@ from auron_tpu_torch import config as tcfg
 from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir.planner import PlannerContext, plan_from_bytes
 from auron_tpu_torch.runtime.executor import collect
+from tests import torch_join_cases as join_cases
 
 NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
          "keyless", "store_quantity", "float_sum", "limit", "rename",
-         "pruned")
+         "pruned") + join_cases.NAMES
 
 #: per operator: the fields it runs on, compared by repr
 FIELDS = {
@@ -52,6 +55,8 @@ FIELDS = {
     "RenameColumnsOp": ("names",),
     "UnionOp": (),
     "FusedStageOp": (),
+    "HashJoinOp": ("join_type", "probe_keys", "build_keys"),
+    "BroadcastExchangeOp": ("input_partitions",),
 }
 
 
@@ -81,7 +86,7 @@ def _rename_plan(pb, table_name: str):
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("tpcds"))
-    tables = {"store_sales": rdata.generate(root, 0.2, 42)["store_sales"]}
+    tables = rdata.generate(root, 0.2, 42)
     table = pa.concat_tables(pq.read_table(f) for f in tables["store_sales"])
     return tables, table
 
@@ -114,6 +119,7 @@ def _ref_dataframes(session, tables, table) -> dict:
         tables["store_sales"], columns=["ss_quantity", "ss_store_sk"],
         partitions=2).group_by("ss_store_sk").agg(
         F.max(col("ss_quantity")).alias("top"))
+    out.update(join_cases.reference_dataframes(session, tables))
     return out
 
 
@@ -134,7 +140,8 @@ def trees(request, data):
     dfs = _ref_dataframes(rs, tables, table)
     dfs["rename"] = _rename_plan(rpb, "store_sales")
     tctx = PlannerContext(
-        catalog={"store_sales": table},
+        # the in-memory tables the reference session registered
+        catalog={**rs.ctx.catalog, "store_sales": table},
         config=tcfg.AuronConfig({tcfg.FUSION_ENABLED: fusion}),
         device="cpu")
     out = {}
@@ -191,6 +198,20 @@ def test_trees_have_the_expected_shape(trees):
     assert full[0].strip() == "SortOp[2 keys, fetch=None]"
     assert "ShuffleExchangeOp[RangePartitioning 4->4]" in full[1]
     assert "SinglePartitioning 4->1" in got["keyless"]
+    # joins: co-partitioned sides hash-exchange both; the others
+    # broadcast the build side, and a lone filter on the probe side is
+    # a stage of its own
+    assert got["q05"].count("ShuffleExchangeOp[HashPartitioning") == 3
+    for name in ("q05_broadcast", "q09_semi", "q09_anti",
+                 "broadcast_right"):
+        assert "BroadcastExchangeOp" in got[name], name
+    for name in join_cases.JOIN_TYPES:
+        assert f"HashJoinOp[{name}, 1 keys]" in got[name]
+        assert "BroadcastExchangeOp" not in got[name]
+    probe = got["filtered_probe"].splitlines()
+    at = next(i for i, ln in enumerate(probe) if "HashJoinOp" in ln)
+    assert probe[at + 1].strip() == ("FusedStageOp[FilterOp[1 predicates]]"
+                                     if fused else "FilterOp[1 predicates]")
 
 
 def test_key_domain_derived_as_the_reference_does(trees, data):
@@ -230,8 +251,13 @@ def test_unported_nodes_raise_naming_them(data):
     scan = tpb.PlanNode(parquet_scan=tpb.ParquetScanNode(
         files=tables["store_sales"]))
     cases = {
-        "hash_join": tpb.PlanNode(hash_join=tpb.HashJoinNode(
-            probe=scan, build=scan)),
+        "sort_merge_join": tpb.PlanNode(
+            sort_merge_join=tpb.SortMergeJoinNode(probe=scan, build=scan)),
+        "broadcast_join": tpb.PlanNode(
+            broadcast_join=tpb.BroadcastJoinNode(probe=scan)),
+        "output_resource_id": tpb.PlanNode(
+            broadcast_exchange=tpb.BroadcastExchangeNode(
+                child=scan, output_resource_id="build")),
         "window": tpb.PlanNode(window=tpb.WindowNode(child=scan)),
         "pushdown": tpb.PlanNode(parquet_scan=tpb.ParquetScanNode(
             files=tables["store_sales"], predicates=[tpb.ExprNode(

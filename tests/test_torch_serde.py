@@ -5,9 +5,14 @@
   bytes as the same trees in the reference's IR;
 - for q01, q02, q10, q11, q12, q13 (``it/queries.py``), q02's full
   sort (no limit: a range exchange), a keyless aggregate, the in-memory
-  query ``store_quantity_dataframe`` and a scan of two columns, the port
+  query ``store_quantity_dataframe``, a scan of two columns and the join
+  queries (``torch_join_cases``: q05 co-partitioned and over a broadcast
+  build side, semi and anti against a broadcast, each join type
+  co-partitioned, right and full over a broadcast), the port
   DataFrame's ``task_bytes()`` equals the reference DataFrame's byte for
   byte;
+- ``DataFrame.partitioning`` equals the reference's after every
+  transform that carries, sets or drops it;
 - reference bytes parse in the port and port bytes in the reference;
 - the port's messages are its own classes, not the reference's.
 """
@@ -34,9 +39,10 @@ from auron_tpu_torch.frontend.session import Session as TSession
 from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir import serde as tserde
 from auron_tpu_torch.it import queries as tqueries
+from tests import torch_join_cases as join_cases
 
 NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
-         "keyless", "store_quantity", "pruned")
+         "keyless", "store_quantity", "pruned") + join_cases.NAMES
 
 
 def _exprs(ir, DT):
@@ -160,7 +166,7 @@ def _keyless(session, tables, dsl):
 def task_bytes(tmp_path_factory):
     """Each query's task bytes from both packages' DataFrames."""
     root = str(tmp_path_factory.mktemp("tpcds"))
-    tables = {"store_sales": rdata.generate(root, 0.05, 42)["store_sales"]}
+    tables = rdata.generate(root, 0.05, 42)
     table = pa.concat_tables(pq.read_table(f) for f in tables["store_sales"])
     rs, ts = RSession(), TSession(device="cpu")
     F = rdf.functions
@@ -179,6 +185,7 @@ def task_bytes(tmp_path_factory):
                .agg(F.count_star().alias("n"),
                     F.sum(rdf.col("ss_quantity")).alias("qty")),
                "pruned": _pruned(rs, tables, rdf)}
+    ref.update(join_cases.reference_dataframes(rs, tables))
     port = {"q01": tqueries.q01_dataframe(ts, tables),
             "q02": tqueries.q02_dataframe(ts, tables),
             "q10": tqueries.q10_dataframe(ts, tables),
@@ -189,6 +196,7 @@ def task_bytes(tmp_path_factory):
             "keyless": _keyless(ts, tables, tdf),
             "store_quantity": tqueries.store_quantity_dataframe(ts, table),
             "pruned": _pruned(ts, tables, tdf)}
+    port.update(join_cases.port_dataframes(ts, tables))
     return {n: (port[n].task_bytes(), ref[n].task_bytes(),
                 port[n], ref[n]) for n in NAMES}
 
@@ -221,3 +229,70 @@ def test_distinct_aggregates_raise():
     from auron_tpu_torch.frontend.dataframe import col, functions as F
     with pytest.raises(NotImplementedError, match="DISTINCT"):
         df.agg(F.count(col("v"), distinct=True))
+
+
+def _provenance_chain(session, tables, dsl) -> dict:
+    """{step: DataFrame} through every transform that carries, sets or
+    drops the partitioning provenance, in either package's DSL."""
+    col, F = dsl.col, dsl.functions
+    sales = session.read_parquet(tables["store_sales"], partitions=4)
+    by_item = sales.repartition(4, "ss_item_sk")
+    renamed = by_item.select(col("ss_item_sk").alias("item"),
+                             col("ss_quantity"))
+    one = session.read_parquet(tables["item"], columns=["i_item_sk"])
+    out = {
+        "scan": sales,
+        "hash_repartition": by_item,
+        "round_robin": sales.repartition(3),
+        "round_robin_to_one": sales.repartition(1),
+        "filter": by_item.filter(col("ss_quantity") > 3),
+        "select_renaming_the_key": renamed,
+        "select_dropping_the_key": by_item.select(col("ss_quantity")),
+        "select_computing_the_key": by_item.select(
+            (col("ss_item_sk") + 1).alias("ss_item_sk")),
+        "with_column": by_item.with_column("q2", col("ss_quantity") * 2),
+        "keyed_agg": sales.group_by("ss_store_sk").agg(
+            F.count_star().alias("n")),
+        "keyless_agg": sales.group_by().agg(F.count_star().alias("n")),
+        "one_partition_agg": one.group_by("i_item_sk").agg(
+            F.count_star().alias("n")),
+        "agg_over_hash": renamed.group_by("item").agg(
+            F.sum(col("ss_quantity")).alias("q")),
+        "top_k": by_item.sort(col("ss_quantity").desc(), limit=5),
+        "full_sort": by_item.sort(col("ss_quantity").asc()),
+        "one_partition_sort": one.repartition(1, "i_item_sk").sort(
+            col("i_item_sk").asc()),
+        "limit": by_item.limit(7),
+        "one_partition_limit": one.repartition(1, "i_item_sk").limit(7),
+        "union": by_item.union(by_item),
+        "semi_join": by_item.join(by_item, on="ss_item_sk", how="semi"),
+        "existence_join": by_item.join(by_item.select(col("ss_item_sk")),
+                                       on="ss_item_sk", how="existence"),
+        "inner_join": by_item.join(
+            by_item.select(col("ss_item_sk"),
+                           col("ss_store_sk").alias("store")),
+            on="ss_item_sk"),
+    }
+    return out
+
+
+def test_partitioning_provenance_equals_reference(tmp_path):
+    tables = rdata.generate(str(tmp_path), 0.02, 42)
+    ref = _provenance_chain(RSession(), tables, rdf)
+    port = _provenance_chain(TSession(device="cpu"), tables, tdf)
+    seen = set()
+    for step, want in ref.items():
+        got = port[step]
+        assert got.partitioning == want.partitioning, step
+        assert got.num_partitions == want.num_partitions, step
+        assert got.task_bytes() == want.task_bytes(), step
+        seen.add(want.partitioning)
+    # every kind of provenance occurs
+    assert {p[0] if p else None for p in seen} == {None, "hash", "single"}
+    assert port["select_renaming_the_key"].partitioning == \
+        ("hash", ("item",), 4)
+    # co-partitioned sides need no broadcast; q05 without its
+    # repartitions does
+    assert "broadcast_exchange" not in str(port["inner_join"].plan)
+    assert "broadcast_exchange" in str(tqueries.q05_dataframe(
+        TSession(device="cpu"), tables, co_partitioned=False).plan)
