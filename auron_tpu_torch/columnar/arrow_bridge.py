@@ -1,18 +1,24 @@
-"""pyarrow RecordBatch <-> DeviceBatch conversion, primitive columns.
+"""pyarrow RecordBatch <-> DeviceBatch conversion, primitive and string
+columns.
 
 The port of ``auron_tpu.columnar.arrow_bridge`` for fixed-width columns
-with validity: bool, integers, floats, date32 and timestamp[us]. String,
-decimal, list, map and struct columns come with the slices that need
-them and raise ``NotImplementedError`` here.
+with validity (bool, integers, floats, date32 and timestamp[us]) and
+string columns (``string``, ``large_string`` and dictionaries of them).
+A string column's char matrix is built on the host in numpy from
+Arrow's offset and data buffers, as the reference builds it, at the
+width bucket of its longest value or at a width the caller pins.
+Decimal columns (ROADMAP item 16d) and list, map and struct columns
+(16f) raise ``NotImplementedError`` here.
 
 pyarrow is imported inside the functions, never at module level, so
 the port imports and runs where pyarrow is not installed; only the
 functions that take or make Arrow data need it.
 
-Host → device: each column is padded to the batch capacity in a pinned
-host buffer and copied with ``non_blocking=True`` on a CUDA device, so
-the copy does not wait for the host. Device → host: one packed copy of
-every column's live rows per batch.
+Host → device: each column (a string column's chars, lengths and
+validity alike) is padded to the batch capacity in a pinned host buffer
+and copied with ``non_blocking=True`` on a CUDA device, so the copy does
+not wait for the host. Device → host: one packed copy of every column's
+live rows per batch.
 """
 
 from __future__ import annotations
@@ -21,10 +27,11 @@ import numpy as np
 import torch
 
 from auron_tpu_torch import resolve_device
-from auron_tpu_torch.columnar.batch import DeviceBatch, PrimitiveColumn
+from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
+                                            StringColumn)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.ops.base import host_copy, host_readback
-from auron_tpu_torch.utils.shapes import bucket_rows
+from auron_tpu_torch.utils.shapes import bucket_rows, bucket_string_width
 
 #: numpy payload of each fixed-width type the bridge carries
 _NP = {
@@ -36,6 +43,10 @@ _NP = {
 }
 
 
+#: the ROADMAP item that brings a column type the bridge does not carry
+_ITEM_OF = {DataType.DECIMAL: "ROADMAP item 16d"}
+
+
 def _pa_to_dt() -> dict:
     import pyarrow as pa
     return {
@@ -44,6 +55,7 @@ def _pa_to_dt() -> dict:
         pa.int64(): DataType.INT64, pa.float32(): DataType.FLOAT32,
         pa.float64(): DataType.FLOAT64, pa.date32(): DataType.DATE32,
         pa.timestamp("us"): DataType.TIMESTAMP_US, pa.null(): DataType.NULL,
+        pa.string(): DataType.STRING, pa.large_string(): DataType.STRING,
     }
 
 
@@ -55,9 +67,12 @@ def _dt_to_pa(dt: DataType):
         return pa.timestamp("us")
     if dt == DataType.NULL:
         return pa.null()
+    if dt == DataType.STRING:
+        return pa.string()
     if dt not in _NP:
         raise NotImplementedError(
-            f"{dt.value} columns: the port carries primitive columns only")
+            f"{dt.value} columns: the port carries primitive and string "
+            f"columns only ({_ITEM_OF.get(dt, 'ROADMAP item 16f')})")
     return pa.from_numpy_dtype(_NP[dt])
 
 
@@ -76,8 +91,11 @@ def schema_from_arrow(sch) -> Schema:
         elif pa.types.is_timestamp(t):
             fields.append(Field(f.name, DataType.TIMESTAMP_US, f.nullable))
         else:
+            item = "ROADMAP item 16d" if pa.types.is_decimal(t) \
+                else "ROADMAP item 16f"
             raise NotImplementedError(
-                f"arrow type {t}: the port carries primitive columns only")
+                f"arrow type {t}: the port carries primitive and string "
+                f"columns only ({item})")
     return Schema(tuple(fields))
 
 
@@ -95,37 +113,90 @@ def _pinned(n: int, dtype: torch.dtype, device: torch.device
     return torch.zeros(n, dtype=dtype, pin_memory=device.type == "cuda")
 
 
+def _staged(a: np.ndarray, cap: int, device: torch.device) -> torch.Tensor:
+    """``a`` (``n <= cap`` rows) zero-padded to ``cap`` rows in a staging
+    buffer, then on ``device``."""
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    t = _pinned(cap * int(np.prod(a.shape[1:], dtype=np.int64)), dtype,
+                device).reshape((cap,) + a.shape[1:])
+    t.numpy()[:a.shape[0]] = a
+    if device.type == "cpu":
+        return t
+    return t.to(device, non_blocking=True)
+
+
 def host_to_device(data: np.ndarray, validity: np.ndarray, cap: int,
                    device: torch.device) -> PrimitiveColumn:
     """One column from host arrays of ``n <= cap`` rows, zero-padded to
     ``cap`` and copied to ``device``."""
-    n = data.shape[0]
-    dtype = torch.from_numpy(np.empty(0, data.dtype)).dtype
-    d = _pinned(cap, dtype, device)
-    v = _pinned(cap, torch.bool, device)
-    d.numpy()[:n] = data
-    v.numpy()[:n] = validity
-    if device.type == "cpu":
-        return PrimitiveColumn(d, v)
-    return PrimitiveColumn(d.to(device, non_blocking=True),
-                           v.to(device, non_blocking=True))
+    return PrimitiveColumn(_staged(data, cap, device),
+                           _staged(np.asarray(validity, np.bool_), cap,
+                                   device))
 
 
-def _column_to_device(field: Field, arr, cap: int,
-                      device: torch.device) -> PrimitiveColumn:
+def _string_arrays(arr, width: int | None):
+    """(chars[n, w], lens[n], validity[n]) of a pyarrow string array from
+    its offset and data buffers (no per-row Python), honouring the
+    array's offset. ``width`` pins the char matrix's width; by default it
+    is the bucket of the longest value. A null row's length is 0 (its
+    bytes, if Arrow holds any, stay), as in the reference."""
+    import pyarrow as pa
+    if not pa.types.is_string(arr.type):
+        arr = arr.cast(pa.string())
+    n = len(arr)
+    offsets = np.frombuffer(arr.buffers()[1], dtype=np.int32, count=n + 1,
+                            offset=arr.offset * 4)
+    buf = arr.buffers()[2]
+    data = np.frombuffer(buf, dtype=np.uint8) if buf is not None \
+        else np.zeros(0, np.uint8)
+    lens = (offsets[1:] - offsets[:-1]).astype(np.int32)
+    max_len = int(lens.max()) if n else 0
+    w = width if width is not None else bucket_string_width(max_len)
+    if max_len > w:
+        raise ValueError(f"string of length {max_len} exceeds width "
+                         f"bucket {w}")
+    chars = np.zeros((n, w), dtype=np.uint8)
+    if n and data.size:
+        # chars[i, j] = data[offsets[i] + j] for j < lens[i]
+        col_idx = np.arange(w, dtype=np.int64)[None, :]
+        in_range = col_idx < lens[:, None]
+        src = np.minimum(offsets[:-1, None].astype(np.int64) + col_idx,
+                         data.size - 1)
+        chars = np.where(in_range, data[src], np.uint8(0))
+    validity = ~np.asarray(arr.is_null()) if arr.null_count \
+        else np.ones(n, np.bool_)
+    lens[~validity] = 0
+    return chars, lens, validity
+
+
+def _string_to_device(arr, cap: int, width: int | None,
+                      device: torch.device) -> StringColumn:
+    chars, lens, validity = _string_arrays(arr, width)
+    return StringColumn(_staged(chars, cap, device),
+                        _staged(lens, cap, device),
+                        _staged(validity, cap, device))
+
+
+def _column_to_device(field: Field, arr, cap: int, device: torch.device,
+                      string_widths: dict | None = None):
     """One Arrow column → a padded device column; nulls hold 0 (False
-    for bool), as in the reference."""
+    for bool), as in the reference. ``string_widths`` pins the width of
+    the string columns it names."""
     import pyarrow as pa
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     if pa.types.is_dictionary(arr.type):
         arr = arr.dictionary_decode()
+    if field.dtype == DataType.STRING:
+        return _string_to_device(arr, cap, (string_widths or {}).get(
+            field.name), device)
     n = len(arr)
     np_dtype = _NP.get(field.dtype)
     if np_dtype is None:
         raise NotImplementedError(
             f"{field.dtype.value} column {field.name!r}: the port carries "
-            "primitive columns only")
+            "primitive and string columns only "
+            f"({_ITEM_OF.get(field.dtype, 'ROADMAP item 16f')})")
     if field.dtype == DataType.NULL:
         return host_to_device(np.zeros(n, np.bool_), np.zeros(n, np.bool_),
                               cap, device)
@@ -142,55 +213,95 @@ def _column_to_device(field: Field, arr, cap: int,
     return host_to_device(data, validity, cap, device)
 
 
-def to_device(rb, capacity: int | None = None, device=None
+def to_device(rb, capacity: int | None = None, device=None,
+              string_widths: dict | None = None
               ) -> tuple[DeviceBatch, Schema]:
     """Convert a pyarrow RecordBatch into a padded DeviceBatch on
-    ``device`` (``cuda`` unless another is named)."""
+    ``device`` (``cuda`` unless another is named); ``string_widths``
+    pins the char width of the string columns it names."""
     dev = resolve_device(device)
     schema = schema_from_arrow(rb.schema)
     n = rb.num_rows
     cap = capacity if capacity is not None else bucket_rows(n)
     if n > cap:
         raise ValueError(f"batch of {n} rows exceeds capacity {cap}")
-    cols = tuple(_column_to_device(f, arr, cap, dev)
+    cols = tuple(_column_to_device(f, arr, cap, dev, string_widths)
                  for f, arr in zip(schema, rb.columns))
     return DeviceBatch(cols, torch.full((), n, dtype=torch.int32,
                                         device=dev)), schema
 
 
-def fetch_numpy(batch: DeviceBatch
-                ) -> tuple[list[tuple[np.ndarray, np.ndarray]], int]:
-    """``([(data, validity), ...], n)`` of the batch's live rows: one
-    readback of the row count, then ONE packed device → host copy of
-    every column."""
+def fetch_numpy(batch: DeviceBatch) -> tuple[list[tuple], int]:
+    """``([(data, validity) or (chars, lens, validity), ...], n)`` of the
+    batch's live rows: one readback of the row count, then ONE packed
+    device → host copy of every column, string columns included."""
     (n,) = host_readback([batch.num_rows])
     parts, layout = [], []
+
+    def add(t: torch.Tensor) -> None:
+        t = t[:n].contiguous()
+        layout.append((t.dtype, tuple(t.shape), t.numel() * t.element_size()))
+        parts.append(t.view(torch.uint8).reshape(-1))
+
     for c in batch.columns:
-        if not isinstance(c, PrimitiveColumn):
+        if isinstance(c, StringColumn):
+            add(c.chars)
+            add(c.lens)
+        elif isinstance(c, PrimitiveColumn):
+            add(c.data)
+        else:
             raise NotImplementedError(
-                f"{type(c).__name__}: the port carries primitive columns")
-        d = c.data[:n].contiguous()
-        layout.append((d.dtype, d.numel() * d.element_size()))
-        parts += [d.view(torch.uint8).reshape(-1),
-                  c.validity[:n].view(torch.uint8)]
+                f"{type(c).__name__}: the port carries primitive and "
+                "string columns only")
+        add(c.validity)
     if not parts:
         return [], n
     host = host_copy(torch.cat(parts)).numpy()
-    out, off = [], 0
-    for dtype, nbytes in layout:
-        data = host[off:off + nbytes].view(
-            torch.empty(0, dtype=dtype).numpy().dtype)
+    arrays, off = [], 0
+    for dtype, shape, nbytes in layout:
+        arrays.append(host[off:off + nbytes].view(
+            torch.empty(0, dtype=dtype).numpy().dtype).reshape(shape))
         off += nbytes
-        validity = host[off:off + n].view(np.bool_)
-        off += n
-        out.append((data, validity))
+    out, it = [], iter(arrays)
+    for c in batch.columns:
+        out.append((next(it), next(it), next(it))
+                   if isinstance(c, StringColumn) else (next(it), next(it)))
     return out, n
 
 
-def _host_col_to_arrow(field: Field, data: np.ndarray,
-                       validity: np.ndarray, n: int):
+def strings_to_python(chars: np.ndarray, lens: np.ndarray,
+                      validity: np.ndarray) -> np.ndarray:
+    """A fetched string column as a numpy object array of ``str`` (None
+    where null): UTF-8 decoded, invalid bytes replaced."""
+    out = np.empty(chars.shape[0], dtype=object)
+    for i in range(chars.shape[0]):
+        out[i] = bytes(chars[i, :lens[i]]).decode("utf-8", "replace") \
+            if validity[i] else None
+    return out
+
+
+def _host_string_to_arrow(chars: np.ndarray, lens: np.ndarray,
+                          validity: np.ndarray, n: int):
+    """A fetched string column → a pyarrow StringArray built from its
+    buffers: offsets from the lengths, the bytes below each length."""
+    import pyarrow as pa
+    lens = np.where(validity, lens.astype(np.int64), 0)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    take = np.arange(chars.shape[1])[None, :] < lens[:, None]
+    flat = chars[take].astype(np.uint8)
+    return pa.StringArray.from_buffers(
+        n, pa.py_buffer(offsets.tobytes()), pa.py_buffer(flat.tobytes()),
+        pa.py_buffer(np.packbits(validity, bitorder="little").tobytes()),
+        int((~validity).sum()))
+
+
+def _host_col_to_arrow(field: Field, host: tuple, n: int):
     """ONE host column → a pyarrow array."""
     import pyarrow as pa
+    if field.dtype == DataType.STRING:
+        return _host_string_to_arrow(*host, n)
+    data, validity = host
     if field.dtype == DataType.NULL:
         return pa.nulls(n)
     mask = None if validity.all() else ~validity
@@ -209,6 +320,5 @@ def to_arrow(batch: DeviceBatch, schema: Schema):
     ``_host_col_to_arrow``."""
     import pyarrow as pa
     fetched, n = fetch_numpy(batch)
-    arrays = [_host_col_to_arrow(f, d, v, n)
-              for f, (d, v) in zip(schema, fetched)]
+    arrays = [_host_col_to_arrow(f, h, n) for f, h in zip(schema, fetched)]
     return pa.RecordBatch.from_arrays(arrays, schema=schema_to_arrow(schema))

@@ -1,17 +1,21 @@
-"""Device-resident columnar batches, primitive columns only.
+"""Device-resident columnar batches: primitive and string columns.
 
 The port of ``auron_tpu.columnar.batch``: every column is padded to a
 static ``capacity``; the true row count is a 0-d int32 tensor on the
 batch's device (``num_rows``), so ``row_mask()`` is computed on the device
 and nothing on the hot path waits for the host. Validity is a dense bool
-mask. String, list, map, struct and decimal128 columns come with the
-slices that need them.
+mask. A string column is a zero-padded byte matrix ``chars[capacity,
+width]`` with a length per row; its width is a bucket
+(``utils.shapes.bucket_string_width``), and columns of different widths
+are padded to the wider one before they are concatenated. List, map and
+struct columns (ROADMAP item 16f) and decimal128 columns (16d) are not
+ported: a column op given one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -33,10 +37,34 @@ class PrimitiveColumn:
 
 
 @dataclass(frozen=True)
+class StringColumn:
+    """Fixed-width string column: chars[capacity, width] (zero padded),
+    lens[capacity], validity[capacity]."""
+
+    chars: torch.Tensor     # uint8[capacity, width]
+    lens: torch.Tensor      # int32[capacity]
+    validity: torch.Tensor  # bool[capacity]
+
+    @property
+    def capacity(self) -> int:
+        return self.chars.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.chars.shape[1]
+
+    def with_validity(self, validity: torch.Tensor) -> "StringColumn":
+        return StringColumn(self.chars, self.lens, validity)
+
+
+Column = Union[PrimitiveColumn, StringColumn]
+
+
+@dataclass(frozen=True)
 class DeviceBatch:
     """A bundle of equal-capacity columns plus the dynamic row count."""
 
-    columns: tuple[PrimitiveColumn, ...]
+    columns: tuple[Column, ...]
     num_rows: torch.Tensor  # int32 0-d, <= capacity
 
     @property
@@ -54,22 +82,27 @@ class DeviceBatch:
         return torch.arange(self.capacity, dtype=torch.int32,
                             device=self.device) < self.num_rows
 
-    def column(self, i: int) -> PrimitiveColumn:
+    def column(self, i: int) -> Column:
         return self.columns[i]
 
     def with_columns(self, columns) -> "DeviceBatch":
         return DeviceBatch(tuple(columns), self.num_rows)
 
 
-def _require_primitive(col) -> None:
-    if not isinstance(col, PrimitiveColumn):
+def _require_ported(col) -> None:
+    """Raise for the column types the port does not carry yet."""
+    if not isinstance(col, (PrimitiveColumn, StringColumn)):
         raise NotImplementedError(
-            f"{type(col).__name__}: the port holds primitive columns only")
+            f"{type(col).__name__}: the port carries primitive and string "
+            "columns only (decimal128: ROADMAP item 16d; list, map and "
+            "struct: 16f)")
 
 
-def column_nbytes(col: PrimitiveColumn) -> int:
+def column_nbytes(col: Column) -> int:
     """Device bytes held by one column (at capacity, incl. padding)."""
-    _require_primitive(col)
+    _require_ported(col)
+    if isinstance(col, StringColumn):
+        return col.chars.nbytes + col.lens.nbytes + col.validity.nbytes
     return col.data.nbytes + col.validity.nbytes
 
 
@@ -85,10 +118,16 @@ def mask_validity(batch: DeviceBatch) -> DeviceBatch:
         c.with_validity(c.validity & mask) for c in batch.columns)
 
 
-def gather_column(col: PrimitiveColumn, indices: torch.Tensor,
-                  valid: torch.Tensor) -> PrimitiveColumn:
+def gather_column(col: Column, indices: torch.Tensor,
+                  valid: torch.Tensor) -> Column:
     """Take rows ``indices`` from ``col``; rows where ``valid`` is False
-    become null."""
+    become null (a string's length is zeroed there too; a null row that
+    ``valid`` keeps may still hold its chars)."""
+    _require_ported(col)
+    if isinstance(col, StringColumn):
+        return StringColumn(col.chars[indices],
+                            torch.where(valid, col.lens[indices], 0),
+                            col.validity[indices] & valid)
     return PrimitiveColumn(col.data[indices], col.validity[indices] & valid)
 
 
@@ -122,20 +161,35 @@ def compact(batch: DeviceBatch, keep: torch.Tensor) -> DeviceBatch:
     return gather_batch(batch, indices, n_keep.to(torch.int32))
 
 
-def unify_column_widths(cols: Sequence[PrimitiveColumn]
-                        ) -> list[PrimitiveColumn]:
-    """Pad string widths / list element counts to the max across ``cols``
-    so they can be concatenated; primitive columns have neither."""
+def pad_string_width(col: StringColumn, width: int) -> StringColumn:
+    """Zero-pad a string column's char matrix out to ``width`` bytes per
+    row."""
+    if col.width >= width:
+        return col
+    return StringColumn(
+        torch.nn.functional.pad(col.chars, (0, width - col.width)),
+        col.lens, col.validity)
+
+
+def unify_column_widths(cols: Sequence[Column]) -> list[Column]:
+    """Pad string widths to the max across ``cols`` so they can be
+    concatenated (capacities may differ; widths must not)."""
     for c in cols:
-        _require_primitive(c)
+        _require_ported(c)
+    if cols and isinstance(cols[0], StringColumn):
+        w = max(c.width for c in cols)
+        return [pad_string_width(c, w) for c in cols]
     return list(cols)
 
 
-def concat_columns(a: PrimitiveColumn, b: PrimitiveColumn
-                   ) -> PrimitiveColumn:
-    """Stack two columns (capacities add)."""
-    _require_primitive(a)
-    _require_primitive(b)
+def concat_columns(a: Column, b: Column) -> Column:
+    """Stack two columns (capacities add); string widths are unified
+    first."""
+    a, b = unify_column_widths([a, b])
+    if isinstance(a, StringColumn):
+        return StringColumn(torch.cat([a.chars, b.chars]),
+                            torch.cat([a.lens, b.lens]),
+                            torch.cat([a.validity, b.validity]))
     return PrimitiveColumn(torch.cat([a.data, b.data]),
                            torch.cat([a.validity, b.validity]))
 
@@ -147,15 +201,17 @@ def resize(batch: DeviceBatch, new_capacity: int) -> DeviceBatch:
     if new_capacity == cap:
         return batch
 
-    def resize_col(c: PrimitiveColumn) -> PrimitiveColumn:
-        _require_primitive(c)
+    def fit(t: torch.Tensor) -> torch.Tensor:
         if new_capacity > cap:
-            pad = new_capacity - cap
-            return PrimitiveColumn(
-                torch.nn.functional.pad(c.data, (0, pad)),
-                torch.nn.functional.pad(c.validity, (0, pad)))
-        return PrimitiveColumn(c.data[:new_capacity],
-                               c.validity[:new_capacity])
+            pad = (0, 0) * (t.dim() - 1) + (0, new_capacity - cap)
+            return torch.nn.functional.pad(t, pad)
+        return t[:new_capacity]
+
+    def resize_col(c: Column) -> Column:
+        _require_ported(c)
+        if isinstance(c, StringColumn):
+            return StringColumn(fit(c.chars), fit(c.lens), fit(c.validity))
+        return PrimitiveColumn(fit(c.data), fit(c.validity))
 
     return DeviceBatch(tuple(resize_col(c) for c in batch.columns),
                        batch.num_rows)
@@ -172,23 +228,29 @@ def concat_batches(a: DeviceBatch, b: DeviceBatch) -> DeviceBatch:
     return compact(stacked, keep)
 
 
-def batch_from_numpy(columns: Sequence[tuple[np.ndarray, np.ndarray]],
-                     num_rows: int, device) -> DeviceBatch:
-    """A batch from ``(data, validity)`` numpy pairs — the same arrays a
-    test hands to the JAX package's ``DeviceBatch``."""
+def batch_from_numpy(columns: Sequence[tuple], num_rows: int,
+                     device) -> DeviceBatch:
+    """A batch from numpy tuples — the same arrays a test hands to the
+    JAX package's ``DeviceBatch``: ``(data, validity)`` for a primitive
+    column, ``(chars, lens, validity)`` for a string column."""
     dev = torch.device(device)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
     cols = tuple(
-        PrimitiveColumn(torch.from_numpy(np.ascontiguousarray(d)).to(dev),
-                        torch.from_numpy(np.ascontiguousarray(
-                            v, dtype=np.bool_)).to(dev))
-        for d, v in columns)
+        StringColumn(t(c[0], np.uint8), t(c[1], np.int32), t(c[2], np.bool_))
+        if len(c) == 3 else PrimitiveColumn(t(c[0]), t(c[1], np.bool_))
+        for c in columns)
     return DeviceBatch(cols, torch.tensor(num_rows, dtype=torch.int32,
                                           device=dev))
 
 
-def batch_to_numpy(batch: DeviceBatch
-                   ) -> tuple[list[tuple[np.ndarray, np.ndarray]], int]:
-    """``([(data, validity), ...], num_rows)`` on the host."""
-    cols = [(c.data.cpu().numpy(), c.validity.cpu().numpy())
+def batch_to_numpy(batch: DeviceBatch) -> tuple[list[tuple], int]:
+    """``([(data, validity) or (chars, lens, validity), ...], num_rows)``
+    on the host."""
+    cols = [(c.chars.cpu().numpy(), c.lens.cpu().numpy(),
+             c.validity.cpu().numpy()) if isinstance(c, StringColumn)
+            else (c.data.cpu().numpy(), c.validity.cpu().numpy())
             for c in batch.columns]
     return cols, int(batch.num_rows)

@@ -1,14 +1,18 @@
-"""Expression evaluation on device batches, the primitive subset.
+"""Expression evaluation on device batches.
 
 The port of ``auron_tpu.exprs.eval`` for the nodes in ``exprs/ir.py``:
-column references, literals, binary arithmetic and comparisons with
-numeric promotion, Kleene ``and``/``or``, ``not``, ``is null``,
-``is not null`` and casts between bool, integer and float types. Null
-semantics follow Spark/SQL: arithmetic and comparisons propagate null,
-``x / 0`` and ``x % 0`` are null, ``and``/``or`` are three-valued, and a
-float cast to an integer is null where it is NaN, infinite or out of
-range. Every other node, and a cast from or to a string, decimal or
-date, raises ``NotImplementedError`` naming it.
+column references (string columns too), literals (string literals as a
+broadcast padded row), binary arithmetic and comparisons with numeric
+promotion, the six comparisons of two strings in byte order
+(``ops.strings.compare``), ``IN`` lists over numbers or strings (a
+literal longer than the column's width matches nothing), Kleene
+``and``/``or``, ``not``, ``is null``, ``is not null`` and casts between
+bool, integer and float types. Null semantics follow Spark/SQL:
+arithmetic and comparisons propagate null, ``x / 0`` and ``x % 0`` are
+null, ``and``/``or`` are three-valued, and a float cast to an integer is
+null where it is NaN, infinite or out of range. Every other node raises
+``NotImplementedError`` naming it; so does a cast from or to a string
+(ROADMAP item 17), a decimal (16d) or a date.
 
 Each node becomes a few elementwise tensor ops on the batch's device;
 nothing reads a value back to the host.
@@ -20,9 +24,12 @@ from dataclasses import dataclass
 
 import torch
 
-from auron_tpu_torch.columnar.batch import DeviceBatch, PrimitiveColumn
+from auron_tpu_torch.columnar.batch import (Column, DeviceBatch,
+                                            PrimitiveColumn, StringColumn)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.ops import strings as S
+from auron_tpu_torch.utils.shapes import bucket_string_width
 
 
 @dataclass
@@ -36,7 +43,7 @@ class EvalContext:
 
 @dataclass(frozen=True)
 class TypedValue:
-    col: PrimitiveColumn
+    col: Column
     dtype: DataType
     precision: int = 0
     scale: int = 0
@@ -89,10 +96,22 @@ def common_type(a: DataType, b: DataType) -> DataType:
 
 
 def _const_column(value, dtype: DataType, capacity: int,
-                  device: torch.device) -> PrimitiveColumn:
-    """Materialize a literal as a broadcast column."""
-    if dtype in (DataType.STRING, DataType.DECIMAL):
-        raise NotImplementedError(f"literal of type {dtype.value}")
+                  device: torch.device) -> Column:
+    """Materialize a literal as a broadcast column; a string literal is
+    one padded row of its own width bucket, expanded."""
+    if dtype == DataType.STRING:
+        b = value.encode() if isinstance(value, str) else (value or b"")
+        w = bucket_string_width(max(len(b), 1))
+        row, _ = S.literal_to_device(b, w)
+        chars = torch.from_numpy(row).to(device)[None, :].expand(capacity, w)
+        return StringColumn(
+            chars, torch.full((capacity,), len(b), dtype=torch.int32,
+                              device=device),
+            torch.full((capacity,), value is not None, dtype=torch.bool,
+                       device=device))
+    if dtype == DataType.DECIMAL:
+        raise NotImplementedError(
+            "literal of type decimal (ROADMAP item 16d)")
     tdt = dtype.to_torch()
     if value is None:
         return PrimitiveColumn(
@@ -104,14 +123,19 @@ def _const_column(value, dtype: DataType, capacity: int,
 
 
 def null_column_for_field(field: Field, cap: int,
-                          device: torch.device) -> PrimitiveColumn:
+                          device: torch.device) -> Column:
     """An all-null column of ``cap`` rows shaped for ``field``: the
-    padding of outer joins. Primitive fields only; string, decimal and
-    nested fields come with those columns."""
+    padding of outer joins (a string is 8 bytes wide, as in the
+    reference). Decimal and nested fields come with those columns."""
+    if field.dtype == DataType.STRING:
+        return StringColumn(
+            torch.zeros((cap, 8), dtype=torch.uint8, device=device),
+            torch.zeros(cap, dtype=torch.int32, device=device),
+            torch.zeros(cap, dtype=torch.bool, device=device))
     if field.dtype not in _PRIMITIVE_FIELDS:
         raise NotImplementedError(
             f"null column of {field.dtype.value}: the port carries "
-            "primitive columns only (strings: ROADMAP item 16c, decimals: "
+            "primitive and string columns only (decimals: ROADMAP item "
             "16d, nested types: 16f)")
     return PrimitiveColumn(
         torch.zeros(cap, dtype=field.dtype.to_torch(), device=device),
@@ -156,7 +180,32 @@ def evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
         # fail only to null
         return cast_value(evaluate(expr.child, batch, schema), expr.dtype)
 
+    if isinstance(expr, ir.InList):
+        return _eval_in_list(expr, batch, schema)
+
     raise NotImplementedError(f"expression {type(expr).__name__}")
+
+
+def _eval_in_list(expr: ir.InList, batch: DeviceBatch,
+                  schema: Schema) -> TypedValue:
+    """``child IN (values)``: an or of equalities, one per value; a
+    string literal longer than the column's width matches nothing. The
+    validity is the child's (SQL's null for a null child)."""
+    v = evaluate(expr.child, batch, schema)
+    hit = torch.zeros(batch.capacity, dtype=torch.bool, device=batch.device)
+    if isinstance(v.col, StringColumn):
+        for s in expr.values:
+            row, n = S.literal_to_device(s, v.col.width)
+            if n > v.col.width:
+                continue
+            lit = torch.from_numpy(row).to(batch.device)
+            hit = hit | ((v.col.chars == lit).all(dim=1) & (v.col.lens == n))
+    else:
+        for s in expr.values:
+            hit = hit | (v.data == s)
+    if expr.negated:
+        hit = ~hit
+    return TypedValue(PrimitiveColumn(hit, v.validity), DataType.BOOL)
 
 
 def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
@@ -174,7 +223,7 @@ def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
         if lt == DataType.DECIMAL and rt == DataType.DECIMAL:
             raise NotImplementedError("infer_dtype for decimal arithmetic")
         return common_type(lt, rt), 0, 0
-    if isinstance(expr, (ir.Not, ir.IsNull, ir.IsNotNull)):
+    if isinstance(expr, (ir.Not, ir.IsNull, ir.IsNotNull, ir.InList)):
         return DataType.BOOL, 0, 0
     if isinstance(expr, ir.Cast):
         return expr.dtype, expr.precision, expr.scale
@@ -215,10 +264,13 @@ def _eval_binary(expr: ir.BinaryExpr, batch: DeviceBatch,
             validity = (lv & rv) | (lv & ld) | (rv & rd)
         return TypedValue(PrimitiveColumn(data, validity), DataType.BOOL)
 
-    if DataType.DECIMAL in (l.dtype, r.dtype) \
-            or DataType.STRING in (l.dtype, r.dtype):
+    if isinstance(l.col, StringColumn) or isinstance(r.col, StringColumn):
+        return _eval_string_binary(op, l, r)
+
+    if DataType.DECIMAL in (l.dtype, r.dtype):
         raise NotImplementedError(
-            f"binary {op} on {l.dtype.value} and {r.dtype.value}")
+            f"binary {op} on {l.dtype.value} and {r.dtype.value} (ROADMAP "
+            "item 16d)")
 
     target = common_type(l.dtype, r.dtype)
     l = _numeric_promote(l, target)
@@ -260,6 +312,22 @@ def _eval_binary(expr: ir.BinaryExpr, batch: DeviceBatch,
     return TypedValue(PrimitiveColumn(data, validity), target)
 
 
+def _eval_string_binary(op: str, l: TypedValue,
+                        r: TypedValue) -> TypedValue:
+    """A comparison of two strings in byte order (``ops.strings.compare``);
+    anything else over a string raises."""
+    if not (isinstance(l.col, StringColumn)
+            and isinstance(r.col, StringColumn)):
+        raise TypeError(f"cannot {op} string with non-string")
+    if op not in _COMPARE:
+        raise NotImplementedError(f"string op {op} (ROADMAP item 17)")
+    lt, eq = S.compare(l.col.chars, l.col.lens, r.col.chars, r.col.lens)
+    table = {"==": eq, "!=": ~eq, "<": lt, "<=": lt | eq,
+             ">": ~(lt | eq), ">=": ~lt}
+    return TypedValue(PrimitiveColumn(table[op], l.validity & r.validity),
+                      DataType.BOOL)
+
+
 def _eval_binary_simple(op: str, l: TypedValue,
                         r: TypedValue) -> TypedValue:
     """Arithmetic or comparison on operands already of one float type
@@ -277,9 +345,11 @@ def cast_value(v: TypedValue, dtype: DataType) -> TypedValue:
     if v.dtype == dtype:
         return v
     if v.dtype not in _NUMERIC_CAST or dtype not in _NUMERIC_CAST:
+        item = "16d" if DataType.DECIMAL in (v.dtype, dtype) else "17"
         raise NotImplementedError(
             f"cast {v.dtype.value} -> {dtype.value}: the port casts "
-            "between bool, integer and float types only")
+            f"between bool, integer and float types only (ROADMAP item "
+            f"{item})")
     validity = v.validity
     d = v.data
 

@@ -72,6 +72,16 @@ class IsNotNull(Expr):
 
 
 @dataclass(frozen=True)
+class InList(Expr):
+    child: Expr
+    values: tuple[Any, ...]   # python scalars (non-null)
+    negated: bool = False
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
 class Cast(Expr):
     child: Expr
     dtype: DataType

@@ -4,9 +4,9 @@ The port of ``auron_tpu.frontend.dataframe`` for the expressions and
 transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
-query; what the port cannot plan yet (IN lists, string predicates,
-scalar functions, DISTINCT aggregates, windows, host functions) raises
-``NotImplementedError`` or is absent.
+query; what the port cannot plan yet (string predicates such as
+``like`` and ``startswith``, scalar functions, DISTINCT aggregates,
+windows, host functions) raises ``NotImplementedError`` or is absent.
 
 Each DataFrame carries the reference's ``partitioning`` provenance, the
 layout its partitions are known to have. It never enters the task
@@ -74,6 +74,27 @@ class Col:
 
     def is_not_null(self) -> "Col":
         return Col(("is_not_null", self))
+
+    def isin(self, *values) -> "Col":
+        vals = values[0] if len(values) == 1 and isinstance(
+            values[0], (list, tuple)) else values
+        return Col(("in", self, tuple(vals)))
+
+    def _string_predicate(self, name: str, _pattern: str):
+        raise NotImplementedError(
+            f"Col.{name}: the string predicates come with ROADMAP item 17")
+
+    def like(self, pattern: str) -> "Col":
+        return self._string_predicate("like", pattern)
+
+    def startswith(self, prefix: str) -> "Col":
+        return self._string_predicate("startswith", prefix)
+
+    def endswith(self, suffix: str) -> "Col":
+        return self._string_predicate("endswith", suffix)
+
+    def contains(self, sub: str) -> "Col":
+        return self._string_predicate("contains", sub)
 
     def asc(self, nulls_first: bool = True) -> "SortCol":
         return SortCol(self, True, nulls_first)
@@ -161,6 +182,8 @@ def resolve(c: Col, schema: Schema) -> ir.Expr:
     if tag == "cast":
         _, child, dtype, p, s = n
         return ir.Cast(resolve(child, schema), dtype, p, s)
+    if tag == "in":
+        return ir.InList(resolve(n[1], schema), tuple(n[2]))
     raise NotImplementedError(f"cannot resolve column node {tag!r}")
 
 

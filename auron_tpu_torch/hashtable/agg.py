@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.columnar.batch import gather_column
+from auron_tpu_torch.columnar.batch import gather_column, pad_string_width
 from auron_tpu_torch.hashtable import core
 from auron_tpu_torch.ops import hashing
 from auron_tpu_torch.utils.shapes import next_pow2
@@ -110,12 +110,25 @@ def _export_kernel(key_meta: tuple, cap: int, th, store, accs):
     return cols, tuple(a[perm] for a in accs), ng, th[perm]
 
 
-def _check_meta(meta: tuple, table_meta: tuple) -> None:
-    for i, (bm, sm) in enumerate(zip(meta, table_meta)):
-        if bm != sm:
-            raise AssertionError(
-                f"hashtable key column {i} changed shape mid-stream: "
-                f"{sm} -> {bm}")
+def _pad_string_keys(keys, target_meta: tuple) -> tuple:
+    """Pad narrower batch string columns up to the store's width bucket
+    (zero padding keeps words and hashes unchanged)."""
+    return tuple(pad_string_width(c, m[1]) if m[0] == "str" else c
+                 for c, m in zip(keys, target_meta))
+
+
+def _unify_widths(state, keys) -> tuple:
+    """Reconcile a batch's string width buckets with ``state``'s store
+    (a ``HashAggState`` or ``DeviceHashTable``): a wider batch widens the
+    store (``core.widen_string_store``), a narrower one is padded."""
+    meta = core.key_meta(keys)
+    if meta != state.key_meta:
+        widen = core.string_width_drift(meta, state.key_meta)
+        if widen:
+            state.tw, state.store, state.key_meta = \
+                core.widen_string_store(state.tw, state.store,
+                                        state.key_meta, widen)
+    return _pad_string_keys(keys, state.key_meta)
 
 
 class HashAggState:
@@ -192,7 +205,7 @@ class HashAggState:
         contribs = tuple(contribs)
         if not self.built:
             self._init_arrays(keys, contribs, live.device)
-        _check_meta(core.key_meta(keys), self.key_meta)
+        keys = _unify_widths(self, keys)
         n = int(live.shape[0])
         while True:
             th, tw, store, accs, auxs, n_new, overflow = _agg_step_kernel(

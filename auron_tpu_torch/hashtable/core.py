@@ -39,16 +39,24 @@ becomes a Python loop whose condition reads one bool from the device
 each round. ``insert_loop.rounds`` / ``.syncs`` and ``probe_loop.rounds``
 / ``.syncs`` count the claim rounds run and the device reads made.
 
-Key columns are primitive only: string and decimal128 columns, and the
-string-width drift of their stores, come with those column types.
+**String keys.** A string key column's words are its validity, its
+length and ``width / 8`` little-endian words of its bytes (bytes at or
+past the length, and every byte of a null row, masked to zero), and its
+store keeps the chars, lengths and validity. A batch narrower than the
+store is zero-padded up to it; a wider batch widens the store first
+(``widen_string_store``): zero char words are spliced into the
+word-major matrix at the end of the column's segment, which changes no
+stored key's equality, and no slot moves. Decimal128 keys come with
+ROADMAP item 16d.
 """
 
 from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.columnar.batch import PrimitiveColumn
+from auron_tpu_torch.columnar.batch import PrimitiveColumn, StringColumn
 from auron_tpu_torch.ops.hashing import canonicalize_float
+from auron_tpu_torch.ops.strings import le_words
 from auron_tpu_torch.utils.float_order import scatter_min_max
 
 #: empty-slot sentinel: the uint64 maximum, as int64 bits. It is the
@@ -95,22 +103,29 @@ def dtype_name(dt: torch.dtype) -> str:
 
 def key_meta(cols) -> tuple:
     """Static per-column codec descriptor, enough to rebuild an empty
-    store. Raises NotImplementedError for columns without a word
-    encoding in the port."""
+    store: ``("prim", dtype)`` or ``("str", width)``. Raises
+    NotImplementedError for columns without a word encoding in the
+    port."""
     meta = []
     for c in cols:
-        if not isinstance(c, PrimitiveColumn):
+        if isinstance(c, StringColumn):
+            meta.append(("str", int(c.width)))
+        elif isinstance(c, PrimitiveColumn):
+            meta.append(("prim", dtype_name(c.data.dtype)))
+        else:
             raise NotImplementedError(
                 f"hashtable keys of {type(c).__name__} are not supported: "
-                "the port encodes primitive key columns only; string and "
-                "decimal128 keys come with those columns (ROADMAP Queue 1 "
-                "item 16)")
-        meta.append(("prim", dtype_name(c.data.dtype)))
+                "the port encodes primitive and string key columns; "
+                "decimal128 keys come with ROADMAP item 16d")
     return tuple(meta)
 
 
 def words_per_column(meta_entry) -> int:
-    return 2                            # validity, canonical value
+    if meta_entry[0] == "prim":
+        return 2                        # validity, canonical value
+    # string: validity, length, ceil(width / 8) char words (widths are
+    # bucketed to multiples of 8 — utils/shapes.bucket_string_width)
+    return 2 + (meta_entry[1] + 7) // 8
 
 
 def total_words(meta: tuple) -> int:
@@ -128,33 +143,97 @@ def _prim_word(col: PrimitiveColumn) -> torch.Tensor:
     return d.to(torch.int64)
 
 
+def _string_words(col: StringColumn) -> list[torch.Tensor]:
+    """A string column's char words: little-endian 64-bit words of its
+    bytes below each row's length (zero past it and on null rows)."""
+    in_len = (torch.arange(col.width, dtype=torch.int32,
+                           device=col.chars.device)[None, :]
+              < col.lens[:, None]) & col.validity[:, None]
+    return list(le_words(torch.where(in_len, col.chars, 0), 8).unbind(1))
+
+
 def key_words(cols, meta: tuple) -> torch.Tensor:
     """int64[W, n] canonical equality words, word-major (zeroed where
     invalid, so null keys equal each other and nothing else)."""
     ws = []
-    for c in cols:
+    for c, m in zip(cols, meta):
         valid = c.validity
         ws.append(valid.to(torch.int64))
-        ws.append(torch.where(valid, _prim_word(c), 0))
+        if m[0] == "prim":
+            ws.append(torch.where(valid, _prim_word(c), 0))
+        else:
+            ws.append(torch.where(valid, c.lens.to(torch.int64), 0))
+            ws.extend(_string_words(c))
     return torch.stack(ws)
 
 
 def empty_store(meta: tuple, cap: int, device) -> tuple:
-    """Slot-indexed original-value storage: one (data, validity) pair per
-    key column (the emit-side complement of the equality words)."""
-    return tuple(
-        (torch.zeros(cap, dtype=getattr(torch, m[1]), device=device),
-         torch.zeros(cap, dtype=torch.bool, device=device))
-        for m in meta)
+    """Slot-indexed original-value storage: one tuple of arrays per key
+    column (the emit-side complement of the equality words)."""
+    store = []
+    for m in meta:
+        if m[0] == "prim":
+            store.append((torch.zeros(cap, dtype=getattr(torch, m[1]),
+                                      device=device),
+                          torch.zeros(cap, dtype=torch.bool, device=device)))
+        else:
+            store.append((torch.zeros((cap, m[1]), dtype=torch.uint8,
+                                      device=device),
+                          torch.zeros(cap, dtype=torch.int32, device=device),
+                          torch.zeros(cap, dtype=torch.bool, device=device)))
+    return tuple(store)
 
 
 def _col_arrays(col, m) -> tuple:
-    return (col.data, col.validity)
+    if m[0] == "prim":
+        return (col.data, col.validity)
+    return (col.chars, col.lens, col.validity)
 
 
 def store_columns(store: tuple, meta: tuple) -> tuple:
     """Rebuild key columns from a store (slot-indexed)."""
-    return tuple(PrimitiveColumn(s[0], s[1]) for s in store)
+    return tuple(PrimitiveColumn(s[0], s[1]) if m[0] == "prim"
+                 else StringColumn(s[0], s[1], s[2])
+                 for s, m in zip(store, meta))
+
+
+def widen_string_store(tw: torch.Tensor, store: tuple, meta: tuple,
+                       new_widths: dict) -> tuple:
+    """Grow string columns' width buckets: pad the stored chars and
+    splice zero char words into the word-major matrix at the end of
+    each widened column's segment (zero padding leaves hashes and the
+    words of every stored key unchanged). Returns (tw, store, meta)."""
+    blocks, out_meta, out_store = [], [], []
+    off = 0
+    for i, m in enumerate(meta):
+        w = words_per_column(m)
+        seg = tw[off:off + w]
+        s = store[i]
+        if i in new_widths:
+            nw = new_widths[i]
+            seg = torch.cat([seg, seg.new_zeros(((nw - m[1]) // 8,
+                                                 seg.shape[1]))])
+            s = (torch.nn.functional.pad(s[0], (0, nw - m[1])), s[1], s[2])
+            m = ("str", nw)
+        blocks.append(seg)
+        out_meta.append(m)
+        out_store.append(s)
+        off += w
+    return torch.cat(blocks), tuple(out_store), tuple(out_meta)
+
+
+def string_width_drift(batch_meta: tuple, table_meta: tuple) -> dict:
+    """{column index: new width} for batch string columns wider than the
+    table's store; asserts every other shape aspect is stable."""
+    widen = {}
+    for i, (bm, sm) in enumerate(zip(batch_meta, table_meta)):
+        if bm[0] != sm[0] or (bm[0] != "str" and bm != sm):
+            raise AssertionError(
+                f"hashtable key column {i} changed shape mid-stream: "
+                f"{sm} -> {bm}")
+        if bm[0] == "str" and bm[1] > sm[1]:
+            widen[i] = bm[1]
+    return widen
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +259,13 @@ def store_install(store: tuple, cols, meta: tuple, claims) -> tuple:
     """Gather winners' original key values into batch-won slots."""
     won = batch_owned(claims)
     cw = claims.clamp(0, cols[0].validity.shape[0] - 1)
+
+    def install(old, val):
+        sel = won if old.dim() == 1 else won[:, None]
+        return torch.where(sel, val[cw], old)
+
     return tuple(
-        tuple(torch.where(won, val[cw], old)
-              for old, val in zip(s, _col_arrays(c, m)))
+        tuple(install(old, val) for old, val in zip(s, _col_arrays(c, m)))
         for s, c, m in zip(store, cols, meta))
 
 

@@ -17,7 +17,7 @@ import torch
 
 from auron_tpu_torch.hashtable import core
 from auron_tpu_torch.hashtable.agg import (_MAX_CAPACITY, HashTableOverflow,
-                                           _check_meta, _hashes)
+                                           _hashes, _unify_widths)
 from auron_tpu_torch.utils.shapes import next_pow2
 
 
@@ -109,7 +109,7 @@ class DeviceHashTable:
         keys = tuple(keys)
         if self.key_meta is None:
             self._init_arrays(keys, live.device)
-        _check_meta(core.key_meta(keys), self.key_meta)
+        keys = _unify_widths(self, keys)
         while True:
             th, tw, store, slot, is_new, n_new, ovf = _build_kernel(
                 self.key_meta, self.rounds, self.th, self.tw, self.store,
@@ -125,13 +125,14 @@ class DeviceHashTable:
             self._grow()
 
     def probe(self, keys, live):
-        """Lookup-only: (slot[n], found[n])."""
+        """Lookup-only: (slot[n], found[n]); probe keys wider than the
+        store's width bucket widen it first (a wider probe key can still
+        equal a stored narrower one)."""
         n = int(live.shape[0])
         if self.key_meta is None:
             return (torch.zeros(n, dtype=torch.int32, device=live.device),
                     torch.zeros(n, dtype=torch.bool, device=live.device))
-        keys = tuple(keys)
-        _check_meta(core.key_meta(keys), self.key_meta)
+        keys = _unify_widths(self, tuple(keys))
         return _probe_kernel(self.key_meta, self.rounds, self.th, self.tw,
                              keys, live)
 

@@ -7,6 +7,11 @@ of ``columnar/arrow_bridge.py``, synchronously on the query thread: the
 reference's serial mode. Predicate pushdown and the background
 prefetcher (``ScanPrefetcher``) wait for a later slice.
 
+A parquet scan learns each string column's width bucket from the first
+batch it reads (``_widths_for``, as the reference's) and pins it, so the
+batches of a scan share one width; it widens only when a later batch
+holds a longer value. A memory scan buckets each batch on its own.
+
 The Arrow scans run on ``cuda`` unless they are given another device,
 and raise without CUDA (``auron_tpu_torch.resolve_device``).
 
@@ -25,7 +30,8 @@ from auron_tpu_torch.columnar.batch import DeviceBatch
 from auron_tpu_torch.columnar.schema import Schema
 from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       timer)
-from auron_tpu_torch.utils.shapes import DEFAULT_BATCH_CAPACITY, bucket_rows
+from auron_tpu_torch.utils.shapes import (DEFAULT_BATCH_CAPACITY, bucket_rows,
+                                          bucket_string_width)
 
 
 class ParquetScanOp(PhysicalOp):
@@ -33,7 +39,8 @@ class ParquetScanOp(PhysicalOp):
 
     def __init__(self, files: list[str], schema: Optional[Schema] = None,
                  columns: Optional[list[str]] = None,
-                 batch_rows: int = DEFAULT_BATCH_CAPACITY, device=None):
+                 batch_rows: int = DEFAULT_BATCH_CAPACITY, device=None,
+                 string_widths: Optional[dict[str, int]] = None):
         import pyarrow as pa
         import pyarrow.dataset as pa_ds
         self.files = list(files)
@@ -46,6 +53,9 @@ class ParquetScanOp(PhysicalOp):
                                       for c in self.columns])
         self._schema = schema or schema_from_arrow(arrow_schema)
         self._cap_cache: dict[int, int] = {}
+        #: string column → width bucket, learned from the first batch
+        #: read and then pinned (widened by a longer value)
+        self.string_widths = dict(string_widths or {})
 
     @property
     def children(self):
@@ -103,9 +113,31 @@ class ParquetScanOp(PhysicalOp):
                 ctx.check_cancelled()
                 with timer(io_time):
                     yield to_device(rb, capacity=capacity,
-                                    device=self.device)[0]
+                                    device=self.device,
+                                    string_widths=self._widths_for(rb))[0]
 
         return count_output(stream(), metrics, timed=True)
+
+    def _widths_for(self, rb) -> dict[str, int]:
+        """Stable width buckets per string column, learned once per scan
+        from the first batch and then pinned; a longer value widens its
+        column's bucket. Dictionary columns are not pinned."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        widths = self.string_widths
+        for i, f in enumerate(rb.schema):
+            if not (pa.types.is_string(f.type)
+                    or pa.types.is_large_string(f.type)):
+                continue
+            col = rb.column(i)
+            if f.name not in widths:
+                max_len = pc.max(pc.binary_length(col)).as_py() or 1
+                widths[f.name] = bucket_string_width(max(max_len, 1))
+            else:
+                max_len = pc.max(pc.binary_length(col)).as_py() or 0
+                if max_len > widths[f.name]:
+                    widths[f.name] = bucket_string_width(max_len)
+        return widths
 
     def __repr__(self):
         return f"{type(self).__name__}[{len(self.files)} files]"

@@ -81,6 +81,19 @@ _UNARY = {ir.Not: "not", ir.IsNull: "is_null", ir.IsNotNull: "is_not_null"}
 _PARSE_UNARY = {v: k for k, v in _UNARY.items()}
 
 
+def _scalar_dtype(v) -> DataType:
+    """Best-effort dtype for a bare python scalar (InList values)."""
+    if isinstance(v, bool):
+        return DataType.BOOL
+    if isinstance(v, int):
+        return DataType.INT64
+    if isinstance(v, float):
+        return DataType.FLOAT64
+    if isinstance(v, str):
+        return DataType.STRING
+    raise TypeError(f"unsupported in-list scalar {type(v).__name__}")
+
+
 def _literal_to_proto(value, dtype: DataType, precision=0,
                       scale=0) -> pb.LiteralE:
     out = pb.LiteralE(dtype=_DT_TO_P[dtype], precision=precision,
@@ -116,6 +129,11 @@ def expr_to_proto(e: ir.Expr) -> pb.ExprNode:
         return pb.ExprNode(cast=pb.CastE(
             child=expr_to_proto(e.child), dtype=_DT_TO_P[e.dtype],
             precision=e.precision, scale=e.scale, ansi=not e.safe))
+    if isinstance(e, ir.InList):
+        node = pb.InListE(child=expr_to_proto(e.child), negated=e.negated)
+        for v in e.values:
+            node.values.append(_literal_to_proto(v, _scalar_dtype(v)))
+        return pb.ExprNode(in_list=node)
     raise NotImplementedError(f"expr_to_proto: {type(e).__name__}")
 
 
@@ -151,6 +169,15 @@ def parse_expr(p: pb.ExprNode) -> ir.Expr:
         safe = p.cast.try_cast or not p.cast.ansi
         return ir.Cast(parse_expr(p.cast.child), _P_TO_DT[p.cast.dtype],
                        p.cast.precision, p.cast.scale, safe=safe)
+    if kind == "in_list":
+        return ir.InList(parse_expr(p.in_list.child),
+                         tuple(_parse_literal(v).value
+                               for v in p.in_list.values),
+                         p.in_list.negated)
+    if kind in ("like", "string_pred"):
+        raise NotImplementedError(
+            f"parse_expr: {kind} (the string predicates come with ROADMAP "
+            "item 17)")
     raise NotImplementedError(f"parse_expr: {kind}")
 
 

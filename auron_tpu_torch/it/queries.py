@@ -1,9 +1,10 @@
 """TPC-DS-class integration queries the port can run.
 
-Copies of ``auron_tpu.it.queries``'s q01, q02, q05, q10, q11, q12 and
-q13, with their pandas oracles. Each query runs through the whole front
-end: DataFrame DSL → protobuf TaskDefinition → physical planner →
-operators (``ShuffleExchangeOp`` stages and hash joins included).
+Copies of ``auron_tpu.it.queries``'s q01 to q13, with their pandas
+oracles (q03, q04 and q06 to q09 group, filter or sort on strings). Each
+query runs through the whole front end: DataFrame DSL → protobuf
+TaskDefinition → physical planner → operators (``ShuffleExchangeOp``
+stages and hash joins included).
 More queries of the same shapes:
 
 - ``store_quantity_dataframe``, over an in-memory table
@@ -12,7 +13,7 @@ More queries of the same shapes:
 - ``q05_dataframe(co_partitioned=False)``, q05 without its two
   repartitions, whose date_dim side is broadcast;
 - ``cheap_sales_items_dataframe``, q09's anti join (or its semi join)
-  with a keyless count, since q09 groups on a string;
+  with a keyless count over the item keys alone;
 - ``outer_join_dataframe``, a co-partitioned join of every type that
   leaves rows unmatched on both sides;
 - ``broadcast_outer_dataframe``, the right or full join over a
@@ -94,6 +95,51 @@ def _q02_oracle(p):
                          ascending=[False, True]).head(100)
 
 
+# q03: fact ⋈ dim join (co-partitioned) → agg by category (IN filter)
+
+def q03_dataframe(s, t):
+    item = (_dim(s, t, "item")
+            .select(col("i_item_sk").alias("ss_item_sk"),
+                    col("i_category"), col("i_current_price"))
+            .repartition(4, "ss_item_sk"))
+    sales = _sales(s, t).repartition(4, "ss_item_sk")
+    return (sales.join(item, on="ss_item_sk")
+            .filter(col("i_category").isin("Books", "Music", "Shoes"))
+            .group_by("i_category")
+            .agg(F.sum(col("ss_sales_price")).alias("total"),
+                 F.count_star().alias("n")))
+
+
+def _q03_oracle(p):
+    ss, it = p["store_sales"], p["item"]
+    j = ss.merge(it, left_on="ss_item_sk", right_on="i_item_sk")
+    j = j[j.i_category.isin(["Books", "Music", "Shoes"])]
+    return j.groupby("i_category").agg(
+        total=("ss_sales_price", "sum"),
+        n=("ss_item_sk", "size")).reset_index()
+
+
+# q04: join the store dim → agg by state
+
+def q04_dataframe(s, t):
+    store = (_dim(s, t, "store")
+             .select(col("s_store_sk").alias("ss_store_sk"),
+                     col("s_state")))
+    return (_sales(s, t).repartition(4, "ss_store_sk")
+            .join(store.repartition(4, "ss_store_sk"), on="ss_store_sk")
+            .group_by("s_state")
+            .agg(F.count_star().alias("n"),
+                 F.sum(col("ss_net_profit")).alias("profit")))
+
+
+def _q04_oracle(p):
+    j = p["store_sales"].merge(p["store"], left_on="ss_store_sk",
+                               right_on="s_store_sk")
+    return j.groupby("s_state").agg(
+        n=("ss_store_sk", "size"),
+        profit=("ss_net_profit", "sum")).reset_index()
+
+
 # q05: a filtered date_dim joined with store_sales → agg by month
 
 def q05_dataframe(s, t, co_partitioned=True):
@@ -118,6 +164,115 @@ def _q05_oracle(p):
                                right_on="d_date_sk")
     return j.groupby("d_moy").agg(
         total=("ss_sales_price", "sum")).reset_index()
+
+
+# q06: string min/max aggregates over a join (customer emails by state)
+
+def q06_dataframe(s, t):
+    cust = (_dim(s, t, "customer")
+            .select(col("c_customer_sk").alias("ss_customer_sk"),
+                    col("c_state"), col("c_email")))
+    return (_sales(s, t).repartition(4, "ss_customer_sk")
+            .join(cust.repartition(4, "ss_customer_sk"),
+                  on="ss_customer_sk")
+            .group_by("c_state")
+            .agg(F.min(col("c_email")).alias("first_email"),
+                 F.max(col("c_email")).alias("last_email"),
+                 F.count(col("c_email")).alias("n")))
+
+
+def _q06_oracle(p):
+    import pandas as pd
+    j = p["store_sales"].merge(p["customer"], left_on="ss_customer_sk",
+                               right_on="c_customer_sk")
+    # SQL min/max skip nulls: drop them, then reduce (an all-null group
+    # gives NaN, the engine's NULL)
+    g = j.groupby("c_state")["c_email"]
+    return pd.DataFrame({
+        "first_email": g.apply(lambda v: v.dropna().min()),
+        "last_email": g.apply(lambda v: v.dropna().max()),
+        "n": g.count(),
+    }).reset_index()
+
+
+# q07: three-table join → composite-key agg → sort + limit
+
+def q07_dataframe(s, t):
+    item = (_dim(s, t, "item")
+            .select(col("i_item_sk").alias("ss_item_sk"),
+                    col("i_category")))
+    store = (_dim(s, t, "store")
+             .select(col("s_store_sk").alias("ss_store_sk"),
+                     col("s_state")))
+    return (_sales(s, t).repartition(4, "ss_item_sk")
+            .join(item.repartition(4, "ss_item_sk"), on="ss_item_sk")
+            .repartition(4, "ss_store_sk")
+            .join(store.repartition(4, "ss_store_sk"), on="ss_store_sk")
+            .filter(col("ss_net_profit") > 0)
+            .group_by("i_category", "s_state")
+            .agg(F.sum(col("ss_net_paid")).alias("paid"))
+            .sort(col("paid").desc(), col("i_category").asc(),
+                  col("s_state").asc(), limit=50))
+
+
+def _q07_oracle(p):
+    j = (p["store_sales"]
+         .merge(p["item"], left_on="ss_item_sk", right_on="i_item_sk")
+         .merge(p["store"], left_on="ss_store_sk", right_on="s_store_sk"))
+    j = j[j.ss_net_profit > 0]
+    g = j.groupby(["i_category", "s_state"]).agg(
+        paid=("ss_net_paid", "sum")).reset_index()
+    return g.sort_values(["paid", "i_category", "s_state"],
+                         ascending=[False, True, True]).head(50)
+
+
+# q08: semi join — the states of customers who bought Electronics
+
+def q08_dataframe(s, t):
+    item = (_dim(s, t, "item")
+            .select(col("i_item_sk").alias("ss_item_sk"),
+                    col("i_category")))
+    buyers = (_sales(s, t)
+              .join(item, on="ss_item_sk")
+              .filter(col("i_category") == "Electronics")
+              .select(col("ss_customer_sk").alias("c_customer_sk")))
+    cust = _dim(s, t, "customer")
+    return (cust.join(buyers, on="c_customer_sk", how="semi")
+            .group_by("c_state")
+            .agg(F.count_star().alias("n")))
+
+
+def _q08_oracle(p):
+    j = p["store_sales"].merge(p["item"], left_on="ss_item_sk",
+                               right_on="i_item_sk")
+    buyers = set(j[j.i_category == "Electronics"].ss_customer_sk)
+    c = p["customer"]
+    c = c[c.c_customer_sk.isin(buyers)]
+    return c.groupby("c_state").agg(
+        n=("c_customer_sk", "size")).reset_index()
+
+
+# q09: anti join — items never sold under $1, counted by category
+
+def q09_dataframe(s, t):
+    # "never discounted": anti-join against sub-$1 sales, rare enough
+    # (~0.2% of rows) that the anti side stays populated at every scale
+    sold = (_sales(s, t)
+            .filter(col("ss_sales_price") < 1.0)
+            .select(col("ss_item_sk").alias("i_item_sk")))
+    item = _dim(s, t, "item")
+    return (item.join(sold, on="i_item_sk", how="anti")
+            .group_by("i_category")
+            .agg(F.count_star().alias("n")))
+
+
+def _q09_oracle(p):
+    ss = p["store_sales"]
+    sold = set(ss[ss.ss_sales_price < 1.0].ss_item_sk)
+    it = p["item"]
+    unsold = it[~it.i_item_sk.isin(sold)]
+    return unsold.groupby("i_category").agg(
+        n=("i_item_sk", "size")).reset_index()
 
 
 # q09's join with a keyless count: items against sub-$1 sales
@@ -309,8 +464,18 @@ QUERIES = [
           _q01_oracle),
     Query("q02_topk_revenue", "agg→exchange→global sort+limit",
           q02_dataframe, _q02_oracle),
+    Query("q03_item_join_agg", "co-partitioned join→agg (IN filter)",
+          q03_dataframe, _q03_oracle),
+    Query("q04_store_join_agg", "join→agg by dim attribute", q04_dataframe,
+          _q04_oracle),
     Query("q05_date_filter_join", "filtered dim join→agg", q05_dataframe,
           _q05_oracle),
+    Query("q06_string_minmax", "join→min/max(string) agg", q06_dataframe,
+          _q06_oracle),
+    Query("q07_three_table", "3-table join→composite agg→top-k",
+          q07_dataframe, _q07_oracle),
+    Query("q08_semi_join", "semi join→agg", q08_dataframe, _q08_oracle),
+    Query("q09_anti_join", "anti join→agg", q09_dataframe, _q09_oracle),
     Query("q10_having", "agg→filter-on-aggregate", q10_dataframe,
           _q10_oracle),
     Query("q11_union", "union of branches→agg", q11_dataframe, _q11_oracle),

@@ -129,7 +129,8 @@ HASHTABLE = register(KernelInfo(
         "(auron_tpu_torch/hashtable): claim-owner probe rounds (one "
         "scatter-min + gathers per round, compacted tail) in PyTorch ops "
         "build the group table; accumulators scatter into their slots. "
-        "Unbounded key domains, primitive keys, reassociation-exact "
+        "Unbounded key domains, primitive and string keys, "
+        "reassociation-exact "
         "reduce kinds (sum/min/max/or/first); the general-agg "
         "replacement for sort + segment-reduce."),
     reductions=("sum", "count", "min", "max", "or", "first"),

@@ -1,8 +1,9 @@
 """Grouped aggregation: ``AggOp`` in partial, final and complete modes.
 
-The port of ``auron_tpu.ops.agg`` for primitive keys and values and the
-aggregates sum, count, count_star, avg, min, max and first. Three paths,
-chosen per execution as the reference chooses them:
+The port of ``auron_tpu.ops.agg`` for primitive and string keys, and the
+aggregates sum, count, count_star, avg, min, max and first (min, max,
+first and count over strings too). Three paths, chosen per execution as
+the reference chooses them:
 
 - **sort** (the general path): per batch, xxhash64 of the keys → stable
   argsort → segment reduce into a hash-sorted group table; the table
@@ -23,12 +24,21 @@ Hashes are kept as int64 in uint64 order (``h ^ int64.min``), so sorts
 and binary searches run on int64; dead rows and empty slots carry the
 order's largest value and sort last.
 
+A string accumulator (``_STR_KINDS``: min, max, first and
+first_ignores_null over a string) is a triple (chars, lens, valid) with
+its validity inside, and one state field. ``smin``/``smax`` reduce by
+rank, not by a scatter of values: one stable argsort per order word
+(``ops.sort.order_words``, then the length, valid rows first) ranks
+every row, and an integer ``amin`` of the ranks picks each group's
+winner, so the order of a device's atomics cannot change the answer.
+The reference's dispatch sends them to the sort path (``acc_kind:smin``).
+
 Host syncs: each step that needs a group count on the host — the batch
 reduce, a merge, the dense emit, a hash-table update — reads all its
 control scalars in one ``ops.base.host_readback``. The spill tier, the
 host-side aggregates (bloom filter, UDAF), collect_list/set, DISTINCT,
-and string and decimal columns are not ported: they raise
-``NotImplementedError`` naming the feature.
+and decimal columns are not ported: they raise ``NotImplementedError``
+naming the feature.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import torch
 
 from auron_tpu_torch import config as cfg
 from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
-                                            gather_column,
+                                            StringColumn, gather_column,
                                             unify_column_widths)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
@@ -49,6 +59,7 @@ from auron_tpu_torch.exprs.eval import (EvalContext, evaluate, infer_dtype,
 from auron_tpu_torch.ops import hashing
 from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       host_readback, timer)
+from auron_tpu_torch.ops.sort import order_words
 from auron_tpu_torch.utils.float_order import min_max, scatter_min_max
 from auron_tpu_torch.utils.shapes import bucket_rows
 
@@ -66,6 +77,10 @@ _SUM_DTYPE = {
 _PRIMITIVE = frozenset(_SUM_DTYPE) | {DataType.BOOL, DataType.DATE32,
                                       DataType.TIMESTAMP_US}
 
+#: reduce kinds over string values; their accumulator is a triple
+#: (chars[cap, W] uint8, lens[cap] int32, valid[cap] bool)
+_STR_KINDS = ("smin", "smax", "sfirst", "sfirst_ign")
+
 
 @dataclass(frozen=True)
 class AccSpec:
@@ -82,14 +97,26 @@ class AccSpec:
 def _unsupported(what: str):
     return NotImplementedError(
         f"{what}: not ported; the port's AggOp takes sum, count, "
-        "count_star, avg, min, max and first over primitive columns")
+        "count_star, avg, min, max and first over primitive columns, and "
+        "count, min, max and first over strings")
 
 
 def _arg_dtype(agg: ir.AggFunction, in_schema: Schema) -> DataType:
     dt = infer_dtype(agg.arg, in_schema)[0]
-    if dt not in _PRIMITIVE:
+    if dt not in _PRIMITIVE and not (
+            dt == DataType.STRING
+            and agg.fn in ("min", "max", "first", "first_ignores_null")):
         raise _unsupported(f"{agg.fn} over {dt.value}")
     return dt
+
+
+def _string_spec(fn: str) -> "AccSpec":
+    """min, max, first or first_ignores_null over a string: one state
+    field, its validity inside the accumulator."""
+    kind = {"min": "smin", "max": "smax", "first": "sfirst",
+            "first_ignores_null": "sfirst_ign"}[fn]
+    return AccSpec(fn, (("val", DataType.STRING, kind),),
+                   (DataType.STRING, 0, 0))
 
 
 def make_acc_spec(agg: ir.AggFunction, in_schema: Schema,
@@ -104,6 +131,8 @@ def make_acc_spec(agg: ir.AggFunction, in_schema: Schema,
                   "first_ignores_null"):
         raise _unsupported(f"aggregate function {fn}")
     dt = _arg_dtype(agg, in_schema)
+    if dt == DataType.STRING:
+        return _string_spec(fn)
     if fn == "sum":
         sdt = _SUM_DTYPE.get(dt)
         if sdt is None:
@@ -136,6 +165,9 @@ def make_acc_spec_from_partial(agg: ir.AggFunction, in_schema: Schema,
         return AccSpec(fn, (("count", DataType.INT64, "sum"),),
                        (DataType.INT64, 0, 0))
     f0 = in_schema[start_idx]
+    if f0.dtype == DataType.STRING and fn in (
+            "min", "max", "first", "first_ignores_null"):
+        return _string_spec(fn)
     if f0.dtype not in _PRIMITIVE:
         raise _unsupported(f"{fn} state of {f0.dtype.value}")
     if fn == "sum":
@@ -260,6 +292,10 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
 
     new_accs = []
     for kind, acc in zip(kinds, accs_s):
+        if kind in _STR_KINDS:
+            new_accs.append(_reduce_string(kind, acc, live_s, dest, out_cap,
+                                           spare, out_valid))
+            continue
         if kind == "first":
             # the value at the first sorted live row of the group
             new_accs.append(acc[rep])
@@ -267,6 +303,75 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
         masked = torch.where(live_s, acc, _neutral(kind, acc.dtype))
         new_accs.append(_segment(kind, masked, dest, out_cap, spare))
     return new_keys, tuple(new_accs), h_out, num_groups
+
+
+def _reduce_string(kind: str, acc, live_s: torch.Tensor, dest: torch.Tensor,
+                   out_cap: int, spare: int, out_valid: torch.Tensor):
+    """One string accumulator of rows sorted by group → its per-group
+    (chars, lens, valid). sfirst: the group's first live row;
+    sfirst_ign: its first valid row (null when it has none); smin/smax:
+    the valid row ranked first by value (null when none is valid)."""
+    chars_s, lens_s, v = acc
+    v_s = v & live_s
+    cap = live_s.shape[0]
+    idx = torch.arange(cap, dtype=torch.int32, device=live_s.device)
+    if kind in ("sfirst", "sfirst_ign"):
+        cand = torch.where(v_s if kind == "sfirst_ign" else live_s, idx, cap)
+        raw = _segment("min", cand, dest, out_cap, spare)
+        fi = raw.clamp(0, cap - 1).to(torch.int64)
+        # raw == cap: no qualifying row; the clipped index then points
+        # at an unrelated row whose validity must not leak through
+        return chars_s[fi], lens_s[fi], v_s[fi] & (raw < cap) & out_valid
+    words = order_words(StringColumn(chars_s, lens_s, v_s),
+                        ascending=(kind == "smin"), nulls_first=False)
+    lw = lens_s.to(torch.int64) ^ _SIGN     # embedded NULs tie-break
+    words.append(lw if kind == "smin" else ~lw)
+    lead = (~v_s).to(torch.int8)
+    vperm = torch.arange(cap, device=live_s.device)
+    for w in reversed([lead] + words):
+        vperm = vperm[torch.argsort(w[vperm], stable=True)]
+    rank = torch.empty(cap, dtype=torch.int32,
+                       device=live_s.device).scatter_(0, vperm, idx)
+    winner = _segment("min", torch.where(v_s, rank, cap), dest, out_cap,
+                      spare)
+    win = vperm[winner.clamp(0, cap - 1).to(torch.int64)]
+    has = _segment("or", v_s, dest, out_cap, spare)
+    return chars_s[win], lens_s[win], has & out_valid
+
+
+def _gather_acc(a, perm: torch.Tensor):
+    """An accumulator (a tensor or a string triple) at rows ``perm``."""
+    return tuple(x[perm] for x in a) if isinstance(a, tuple) else a[perm]
+
+
+def _slice_acc(a, n: int):
+    return tuple(x[:n] for x in a) if isinstance(a, tuple) else a[:n]
+
+
+def _unify_acc_pair(a, b) -> tuple:
+    """Pad the char matrices of two string accumulators to one width."""
+    if not isinstance(a, tuple):
+        return a, b
+    w = max(a[0].shape[1], b[0].shape[1])
+
+    def pad(t):
+        return (torch.nn.functional.pad(t[0], (0, w - t[0].shape[1])),) \
+            + tuple(t[1:])
+    return pad(a), pad(b)
+
+
+def _acc_column(a, valid: torch.Tensor):
+    """An accumulator as a state or result column: a string triple keeps
+    its validity, masked by ``valid``."""
+    if isinstance(a, tuple):
+        return StringColumn(a[0], a[1], a[2] & valid)
+    return PrimitiveColumn(a, valid)
+
+
+def _slice_column(c, n: int):
+    if isinstance(c, StringColumn):
+        return StringColumn(c.chars[:n], c.lens[:n], c.validity[:n])
+    return PrimitiveColumn(c.data[:n], c.validity[:n])
 
 
 def _batch_reduce(keys, accs, live, kinds, cap: int):
@@ -278,7 +383,7 @@ def _batch_reduce(keys, accs, live, kinds, cap: int):
     perm = torch.argsort(h, stable=True)
     ones = torch.ones(cap, dtype=torch.bool, device=live.device)
     keys_s = tuple(gather_column(c, perm, ones) for c in keys)
-    accs_s = tuple(a[perm] for a in accs)
+    accs_s = tuple(_gather_acc(a, perm) for a in accs)
     return _reduce_sorted(keys_s, accs_s, live[perm], h[perm], kinds, cap)
 
 
@@ -302,11 +407,19 @@ def _state_merge(kinds, out_cap: int, keys_s, accs_s, h_s, n_s, keys_b,
         0, torch.cat([pos_s, pos_b]), torch.arange(m, device=dev))
 
     def merged(a, b):
+        if isinstance(a, tuple):
+            a, b = _unify_acc_pair(a, b)
+            return tuple(merged(x, y) for x, y in zip(a, b))
         return torch.cat([a, b])[perm]
 
-    keys_m = tuple(PrimitiveColumn(merged(a.data, b.data),
-                                   merged(a.validity, b.validity))
-                   for a, b in zip(keys_s, keys_b))
+    def merged_col(a, b):
+        if isinstance(a, StringColumn):
+            return StringColumn(*merged((a.chars, a.lens, a.validity),
+                                        (b.chars, b.lens, b.validity)))
+        return PrimitiveColumn(merged(a.data, b.data),
+                               merged(a.validity, b.validity))
+
+    keys_m = tuple(merged_col(a, b) for a, b in zip(keys_s, keys_b))
     accs_m = tuple(merged(a, b) for a, b in zip(accs_s, accs_b))
     return _reduce_sorted(keys_m, accs_m, merged(live_s, live_b),
                           merged(h_s, h_b), kinds, out_cap)
@@ -323,10 +436,13 @@ def _state_accs(specs, batch: DeviceBatch, start: int) -> list:
     accs = []
     idx = start
     for spec in specs:
-        for fname, _fdt, _kind in spec.state_fields:
+        for fname, _fdt, kind in spec.state_fields:
             col = batch.columns[idx]
-            accs.append(col.data.bool() & col.validity if fname == "has"
-                        else col.data)
+            if kind in _STR_KINDS:
+                accs.append((col.chars, col.lens, col.validity))
+            else:
+                accs.append(col.data.bool() & col.validity if fname == "has"
+                            else col.data)
             idx += 1
     return accs
 
@@ -352,6 +468,9 @@ def _contribution_columns(group_exprs, mode: str, aggs, specs,
             continue
         v = evaluate(agg.arg, batch, in_schema, ectx)
         valid = v.validity & live
+        if isinstance(v.col, StringColumn):
+            accs.append((v.col.chars, v.col.lens, valid))
+            continue
         for fname, fdt, kind in spec.state_fields:
             if fname == "has":
                 accs.append(valid)
@@ -373,7 +492,8 @@ def _contribution_columns(group_exprs, mode: str, aggs, specs,
 def _passthrough_state_batch(keys, accs, live, num_rows) -> DeviceBatch:
     """One input batch in partial-state layout without merging: each
     row is its own group (partial-agg skipping)."""
-    cols = list(keys) + [PrimitiveColumn(a, live) for a in accs]
+    cols = list(keys) + [StringColumn(*a) if isinstance(a, tuple)
+                         else PrimitiveColumn(a, live) for a in accs]
     return DeviceBatch(tuple(cols), num_rows)
 
 
@@ -473,9 +593,8 @@ class AggOp(PhysicalOp):
         new_cap = max(bucket_rows(max(ng, 1)), self.initial_capacity)
         if new_cap >= cap:
             return tbl
-        keys2 = tuple(PrimitiveColumn(c.data[:new_cap],
-                                      c.validity[:new_cap]) for c in keys)
-        accs2 = tuple(a[:new_cap] for a in accs)
+        keys2 = tuple(_slice_column(c, new_cap) for c in keys)
+        accs2 = tuple(_slice_acc(a, new_cap) for a in accs)
         return (keys2, accs2, n, new_cap, h[:new_cap])
 
     def _reduce_batch(self, keys, accs, live, elapsed):
@@ -499,6 +618,9 @@ class AggOp(PhysicalOp):
         unified = [unify_column_widths([a, c]) for a, c in zip(s_keys, bk)]
         s_keys = tuple(p[0] for p in unified)
         bk = tuple(p[1] for p in unified)
+        pairs = [_unify_acc_pair(a, c) for a, c in zip(s_accs, ba)]
+        s_accs = tuple(p[0] for p in pairs)
+        ba = tuple(p[1] for p in pairs)
         out_cap = max(s_cap, self.initial_capacity)
         while True:
             with timer(elapsed):
@@ -530,8 +652,9 @@ class AggOp(PhysicalOp):
 
     # -- hash path ------------------------------------------------------------
 
-    def _hash_dispatch(self, ctx: ExecContext):
-        """The general-path grouping policy: hashtable vs sort."""
+    def _hash_dispatch(self, ctx: ExecContext, record: bool = True):
+        """The general-path grouping policy: hashtable vs sort
+        (``record=False``: decided without counting)."""
         from auron_tpu_torch.kernels import dispatch as kdispatch
         in_schema = self.child.schema()
         key_dts = tuple(infer_field(e, in_schema, "k").dtype
@@ -543,14 +666,14 @@ class AggOp(PhysicalOp):
         return kdispatch.select_hash_agg(
             key_dtypes=key_dts, acc_kinds=tuple(self._device_kinds()),
             has_float_sum=has_float_sum, conf=ctx.conf,
-            metrics=ctx.metrics_for("kernels"))
+            metrics=ctx.metrics_for("kernels"), record=record)
 
     def _state_batch(self, tbl) -> DeviceBatch:
         """A sorted group table in partial-state layout."""
         keys, accs, num_groups, cap, _h = tbl
         valid = torch.arange(cap, dtype=torch.int32,
                              device=num_groups.device) < num_groups
-        cols = list(keys) + [PrimitiveColumn(a, valid) for a in accs]
+        cols = list(keys) + [_acc_column(a, valid) for a in accs]
         return DeviceBatch(tuple(cols), num_groups)
 
     def _state_contributions(self, batch: DeviceBatch):
@@ -631,7 +754,7 @@ class AggOp(PhysicalOp):
                              device=num_groups.device) < num_groups
         out_cols = list(keys)
         if self.mode == "partial":
-            out_cols += [PrimitiveColumn(a, valid) for a in accs]
+            out_cols += [_acc_column(a, valid) for a in accs]
             return DeviceBatch(tuple(out_cols), num_groups)
         i = 0
         for spec in self.specs:
@@ -641,6 +764,8 @@ class AggOp(PhysicalOp):
             fn = spec.fn
             if fn in ("count", "count_star"):
                 out_cols.append(PrimitiveColumn(state_vals[0], valid))
+            elif spec.result[0] == DataType.STRING:  # validity inside
+                out_cols.append(_acc_column(state_vals[0], valid))
             elif fn == "avg":
                 s, cnt = state_vals
                 avg = s.to(torch.float64) / cnt.clamp(min=1)
@@ -655,6 +780,12 @@ class AggOp(PhysicalOp):
         every other result null."""
         cols = []
         for spec in self.specs:
+            if spec.result[0] == DataType.STRING:
+                cols.append(StringColumn(
+                    torch.zeros((1, 1), dtype=torch.uint8, device=device),
+                    torch.zeros(1, dtype=torch.int32, device=device),
+                    torch.zeros(1, dtype=torch.bool, device=device)))
+                continue
             dt = spec.result[0].to_torch()
             is_count = spec.fn in ("count", "count_star")
             cols.append(PrimitiveColumn(

@@ -1,10 +1,18 @@
-"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive columns.
+"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive and string
+columns.
 
-The port of ``auron_tpu.ops.hashing``'s primitive arms, bit-identical
-to it (and so to Spark's XxHash64 and Murmur3_x86_32): every value
-contributes the hash of its little-endian bytes, multi-column hashes
-chain the running hash through the seed, and NULL leaves the running
-hash unchanged. murmur3 with seed 42 places rows in a hash shuffle.
+The port of ``auron_tpu.ops.hashing``'s primitive and string arms,
+bit-identical to it (and so to Spark's XxHash64 and Murmur3_x86_32):
+every value contributes the hash of its little-endian bytes, multi-column
+hashes chain the running hash through the seed, and NULL leaves the
+running hash unchanged. murmur3 with seed 42 places rows in a hash
+shuffle. A string hashes its first ``lens`` bytes of a zero-padded
+``[n, width]`` matrix: the phases of the byte-stream algorithms (murmur3's
+4-byte blocks then sign-extended tail bytes; xxhash64's 32-byte stripes,
+8-byte blocks, one 4-byte block and tail bytes) run for every row in
+lock-step, each step applied where the row's length reaches it. No byte
+at or past a row's length is read, so the hash does not depend on the
+width.
 
 PyTorch has no unsigned 64-bit shifts or adds, so xxhash64 runs in
 int64: ``+`` and ``*`` wrap mod 2^64 exactly as uint64 does, the primes
@@ -19,7 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.columnar.batch import PrimitiveColumn
+from auron_tpu_torch.columnar.batch import (PrimitiveColumn, StringColumn,
+                                            unify_column_widths)
+from auron_tpu_torch.ops.strings import le_words
 
 
 def _s64(u: int) -> int:
@@ -99,31 +109,40 @@ def nan_aware_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return same
 
 
-def pairwise_eq(pc: PrimitiveColumn, probe_idx: torch.Tensor,
-                bc: PrimitiveColumn, build_idx: torch.Tensor) -> torch.Tensor:
+def _require_key(c) -> None:
+    if not isinstance(c, (PrimitiveColumn, StringColumn)):
+        raise NotImplementedError(
+            f"keys of {type(c).__name__}: the port compares and hashes "
+            "primitive and string columns only; decimal128 keys come with "
+            "ROADMAP item 16d, struct, list and map keys with 16f")
+
+
+def pairwise_eq(pc, probe_idx: torch.Tensor, bc,
+                build_idx: torch.Tensor) -> torch.Tensor:
     """Value equality of ``pc[probe_idx]`` and ``bc[build_idx]`` under
-    Spark key semantics (NaN == NaN, -0.0 == 0.0). Validity is not
-    included: equi-join null keys never match, and the caller applies
-    that rule."""
+    Spark key semantics (NaN == NaN, -0.0 == 0.0; strings byte for byte
+    and by length, at either side's width). Validity is not included:
+    equi-join null keys never match, and the caller applies that rule."""
     for c in (pc, bc):
-        if not isinstance(c, PrimitiveColumn):
-            raise NotImplementedError(
-                f"join keys of {type(c).__name__}: the port compares "
-                "primitive columns only; string keys come with ROADMAP "
-                "item 16c, decimal128 with 16d, struct with 16f")
+        _require_key(c)
+    if isinstance(pc, StringColumn):
+        pc, bc = unify_column_widths([pc, bc])
+        return (pc.chars[probe_idx] == bc.chars[build_idx]).all(dim=1) \
+            & (pc.lens[probe_idx] == bc.lens[build_idx])
     return nan_aware_eq(pc.data[probe_idx], bc.data[build_idx])
 
 
-def adjacent_eq(col: PrimitiveColumn) -> torch.Tensor:
+def adjacent_eq(col) -> torch.Tensor:
     """bool[cap-1]: row i equals row i-1 under Spark key semantics —
-    null == null, NaN == NaN."""
-    if not isinstance(col, PrimitiveColumn):
-        raise NotImplementedError(
-            f"grouping on {type(col).__name__} keys: the port groups "
-            "primitive columns only")
+    null == null, NaN == NaN, strings byte for byte and by length."""
+    _require_key(col)
     both_valid = col.validity[1:] & col.validity[:-1]
     both_null = ~col.validity[1:] & ~col.validity[:-1]
-    same = nan_aware_eq(col.data[1:], col.data[:-1])
+    if isinstance(col, StringColumn):
+        same = (col.chars[1:] == col.chars[:-1]).all(dim=1) \
+            & (col.lens[1:] == col.lens[:-1])
+    else:
+        same = nan_aware_eq(col.data[1:], col.data[:-1])
     return (both_valid & same) | both_null
 
 
@@ -204,13 +223,44 @@ def _f64_bits(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return v & _M32, (v >> 32) & _M32
 
 
-def _hash_column_murmur(col: PrimitiveColumn,
-                        hashes: torch.Tensor) -> torch.Tensor:
+def _byte_at(chars: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """chars[i, pos[i]] (pos clipped into the row) as int64."""
+    idx = pos.clamp(0, chars.shape[1] - 1).to(torch.int64)[:, None]
+    return torch.gather(chars, 1, idx)[:, 0].to(torch.int64)
+
+
+def murmur3_string(chars: torch.Tensor, lens: torch.Tensor,
+                   seed) -> torch.Tensor:
+    """murmur3 over variable-length bytes held in a fixed-width matrix:
+    full 4-byte LE blocks mix in order, then each trailing byte mixes
+    alone, sign-extended, as Spark's ``hashUnsafeBytes`` does. ``seed``
+    is an int or the int32 running hashes → int32[n]."""
+    n = chars.shape[0]
+    words = le_words(chars, 4)
+    nfull = lens.to(torch.int64) // 4
+    h1 = _u32(seed if isinstance(seed, torch.Tensor)
+              else torch.full((n,), seed, dtype=torch.int64,
+                              device=chars.device))
+    for i in range(words.shape[1]):
+        mixed = _mix_h1(h1, _mix_k1(words[:, i]))
+        h1 = torch.where(i < nfull, mixed, h1)
+    ln = lens.to(torch.int64)
+    for j in range(3):
+        pos = nfull * 4 + j
+        byte = _byte_at(chars, pos)
+        # the byte as a Java byte (sign-extended), then its uint32 bits
+        half = ((byte ^ 0x80) - 0x80) & _M32
+        mixed = _mix_h1(h1, _mix_k1(half))
+        h1 = torch.where(pos < ln, mixed, h1)
+    return _s32(_fmix(h1, ln & _M32))
+
+
+def _hash_column_murmur(col, hashes: torch.Tensor) -> torch.Tensor:
     """One column's contribution to the running murmur3 hash (int32[n])."""
-    if not isinstance(col, PrimitiveColumn):
-        raise NotImplementedError(
-            f"murmur3 of {type(col).__name__}: the port hashes primitive "
-            "columns only")
+    _require_key(col)
+    if isinstance(col, StringColumn):
+        new = murmur3_string(col.chars, col.lens, hashes)
+        return torch.where(col.validity, new, hashes)
     d = col.data
     if d.dtype in (torch.bool, torch.int8, torch.int16, torch.int32):
         new = murmur3_int32(d.to(torch.int32), hashes)
@@ -235,7 +285,7 @@ def _hash_device(cols, device) -> torch.device:
         return torch.device(device)
     if not cols:
         raise ValueError("hashing no columns needs its device")
-    return cols[0].data.device
+    return cols[0].validity.device
 
 
 def murmur3_columns(cols: list[PrimitiveColumn], capacity: int,
@@ -260,8 +310,68 @@ def murmur3_batch(batch, key_indices: list[int],
 # xxhash64
 # ---------------------------------------------------------------------------
 
-def _hash_column_xxhash(col: PrimitiveColumn,
-                        hashes: torch.Tensor) -> torch.Tensor:
+def xxhash64_string(chars: torch.Tensor, lens: torch.Tensor,
+                    seed) -> torch.Tensor:
+    """xxhash64 over variable-length bytes held in a fixed-width matrix:
+    32-byte stripes into four accumulators (when the row has one), the
+    length, then 8-byte blocks, one 4-byte block and the tail bytes,
+    each step applied where the row's length reaches it. ``seed`` is an
+    int or the int64 running hashes → int64[n]."""
+    n, width = chars.shape
+    dev = chars.device
+    words64 = le_words(chars, 8)
+    words32 = le_words(chars, 4)
+    n64 = words64.shape[1]
+    ln = lens.to(torch.int64)
+    seed_arr = seed.to(torch.int64) if isinstance(seed, torch.Tensor) \
+        else torch.full((n,), seed, dtype=torch.int64, device=dev)
+
+    nstripes = ln // 32
+    acc1 = seed_arr + _P1 + _P2
+    acc2 = seed_arr + _P2
+    acc3 = seed_arr
+    acc4 = seed_arr - _P1
+    for s in range(width // 32 + (1 if width % 32 else 0)):
+        active = s < nstripes
+        base = s * 4
+        accs = []
+        for k, acc in enumerate((acc1, acc2, acc3, acc4)):
+            w = words64[:, min(base + k, n64 - 1)]
+            accs.append(torch.where(active, _xx_round(acc, w), acc))
+        acc1, acc2, acc3, acc4 = accs
+    merged = (_rotl64(acc1, 1) + _rotl64(acc2, 7) + _rotl64(acc3, 12)
+              + _rotl64(acc4, 18))
+    for acc in (acc1, acc2, acc3, acc4):
+        merged = (merged ^ _xx_round(0, acc)) * _P1 + _P4
+    h = torch.where(ln >= 32, merged, seed_arr + _P5) + ln
+
+    consumed8 = nstripes * 4        # in 8-byte words
+    n8 = (ln % 32) // 8
+    for j in range(4):
+        idx = (consumed8 + j).clamp(0, n64 - 1)[:, None]
+        w = torch.gather(words64, 1, idx)[:, 0]
+        nh = _rotl64(h ^ _xx_round(0, w), 27) * _P1 + _P4
+        h = torch.where(j < n8, nh, h)
+
+    idx4 = (ln // 8 * 2).clamp(0, words32.shape[1] - 1)[:, None]
+    w4 = torch.gather(words32, 1, idx4)[:, 0]
+    h4 = _rotl64(h ^ (w4 * _P1), 23) * _P2 + _P3
+    h = torch.where((ln % 8) >= 4, h4, h)
+
+    tail_start = ln // 4 * 4
+    for j in range(3):
+        pos = tail_start + j
+        byte = _byte_at(chars, pos)
+        nh = _rotl64(h ^ (byte * _P5), 11) * _P1
+        h = torch.where(pos < ln, nh, h)
+    return _xx_avalanche(h)
+
+
+def _hash_column_xxhash(col, hashes: torch.Tensor) -> torch.Tensor:
+    _require_key(col)
+    if isinstance(col, StringColumn):
+        new = xxhash64_string(col.chars, col.lens, hashes)
+        return torch.where(col.validity, new, hashes)
     d = col.data
     if d.dtype in (torch.bool, torch.int8, torch.int16, torch.int32):
         new = xxhash64_int32(d.to(torch.int32), hashes)

@@ -1,4 +1,4 @@
-"""Equi-joins on primitive keys: the hash join.
+"""Equi-joins on primitive and string keys: the hash join.
 
 The port of ``auron_tpu.ops.joins``' ``HashJoinOp``. The build side is
 collected, concatenated and sorted once by the xxhash64 of its keys;
@@ -32,8 +32,11 @@ chain) runs here as eager ops on the batches' device; the probe side is
 executed as it is planned, a ``FusedStageOp`` running its members, with
 the same rows. A context with a memory manager raises: the build side's
 spill and its sort-merge fallback wait for the memory manager (ROADMAP
-item 18) and ``SortMergeJoinOp`` (16f). Keys of other than primitive
-types raise ``NotImplementedError`` naming the item that brings them.
+item 18) and ``SortMergeJoinOp`` (16f). A string key hashes its bytes
+and matches byte for byte at either side's width; string payloads ride
+the gathers, and a left or full join pads the build side with null
+strings of the build's width, as the reference does. Decimal and nested
+keys raise ``NotImplementedError`` naming the item that brings them.
 
 Host syncs per probe batch: one readback of the candidate total, which
 sizes the output (``host_readback``), plus the "ht" lookup's one read
@@ -49,8 +52,8 @@ import torch
 
 from auron_tpu_torch import config as cfg
 from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
-                                            compact, gather_batch,
-                                            gather_column)
+                                            StringColumn, compact,
+                                            gather_batch, gather_column)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import (EvalContext, evaluate, infer_dtype,
@@ -76,10 +79,10 @@ JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "existence")
 _KEY_TYPES = frozenset({DataType.BOOL, DataType.INT8, DataType.INT16,
                         DataType.INT32, DataType.INT64, DataType.FLOAT32,
                         DataType.FLOAT64, DataType.DATE32,
-                        DataType.TIMESTAMP_US})
+                        DataType.TIMESTAMP_US, DataType.STRING})
 
 #: the ROADMAP item that brings keys of a type the port cannot join on
-_KEY_ITEM = {DataType.STRING: "16c", DataType.DECIMAL: "16d"}
+_KEY_ITEM = {DataType.DECIMAL: "16d"}
 
 
 def _key_hashes(cols, cap: int, live: torch.Tensor,
@@ -197,8 +200,8 @@ class HashJoinOp(PhysicalOp):
                 if dt not in _KEY_TYPES:
                     raise NotImplementedError(
                         f"join key of type {dt.value}: the port joins on "
-                        "bool, integer, float, date and timestamp keys; "
-                        f"these come with ROADMAP item "
+                        "bool, integer, float, date, timestamp and string "
+                        "keys; these come with ROADMAP item "
                         f"{_KEY_ITEM.get(dt, '16f')}")
         if join_type in ("semi", "anti"):
             self._schema = ps
@@ -300,8 +303,10 @@ class HashJoinOp(PhysicalOp):
             # unmatched probe rows, with nulls on the build side
             matched_probe = _scatter_true(probe_idx, ok, cap)
             left = compact(probe, ~matched_probe & live)
-            outputs.append(DeviceBatch(
-                left.columns + self._null_build(cap, dev), left.num_rows))
+            null_build = tuple(_null_column_like(c, cap)
+                               for c in side.batch.columns)
+            outputs.append(DeviceBatch(left.columns + null_build,
+                                       left.num_rows))
         yield from outputs
 
     def _null_build(self, cap: int, dev) -> tuple:
@@ -343,4 +348,17 @@ class HashJoinOp(PhysicalOp):
 
     def __repr__(self):
         return f"HashJoinOp[{self.join_type}, {len(self.probe_keys)} keys]"
+
+
+def _null_column_like(col, cap: int):
+    """An all-null column of ``cap`` rows shaped like ``col`` (a string
+    keeps its width)."""
+    dev = col.validity.device
+    if isinstance(col, StringColumn):
+        return StringColumn(
+            torch.zeros((cap, col.width), dtype=torch.uint8, device=dev),
+            torch.zeros(cap, dtype=torch.int32, device=dev),
+            torch.zeros(cap, dtype=torch.bool, device=dev))
+    return PrimitiveColumn(torch.zeros(cap, dtype=col.data.dtype, device=dev),
+                           torch.zeros(cap, dtype=torch.bool, device=dev))
 

@@ -1,6 +1,6 @@
 """Sort operator: a full sort, or the first ``fetch`` rows (top-k).
 
-The port of ``auron_tpu.ops.sort`` for primitive columns. A stage
+The port of ``auron_tpu.ops.sort`` for primitive and string keys. A stage
 breaker: the operator buffers its partition's batches, concatenates
 them once, normalizes every sort key into order-preserving 64-bit words
 and runs one stable argsort per word, least significant first, then one
@@ -10,6 +10,8 @@ first or last and ascending or descending live in the words themselves:
   signed integer → its value, sign-flipped
   float          → canonicalized (-0.0 → 0.0, one NaN, the largest),
                    then all bits flipped if negative, else the sign bit
+  string         → its zero-padded bytes as big-endian 64-bit words,
+                   ceil(width / 8) of them (a prefix sorts first)
   descending     → bitwise NOT of the word
   null rank      → one leading word per key: 0/1 by nulls_first
 
@@ -22,8 +24,8 @@ order, and ``~`` commutes with the XOR, so a descending word stays
 There is no spill: the port has no memory manager yet, so SortOp always
 takes the reference's in-memory branch, and a context that carries a
 memory manager raises ``NotImplementedError``, as AggOp's and the
-exchange's do. String, decimal and struct keys raise until those columns
-are ported. The one host sync is the top-k's read of the sorted row
+exchange's do. Decimal and struct keys raise until those columns are
+ported (ROADMAP items 16d and 16f). The one host sync is the top-k's read of the sorted row
 count, through ``host_readback``.
 """
 
@@ -35,7 +37,8 @@ import numpy as np
 import torch
 
 from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
-                                            compact, gather_batch, resize,
+                                            StringColumn, compact,
+                                            gather_batch, resize,
                                             unify_column_widths)
 from auron_tpu_torch.columnar.schema import DataType, Schema
 from auron_tpu_torch.exprs import ir
@@ -43,6 +46,7 @@ from auron_tpu_torch.exprs.eval import EvalContext, evaluate, infer_dtype
 from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       host_readback, timer)
 from auron_tpu_torch.ops.hashing import canonicalize_float
+from auron_tpu_torch.ops.strings import string_be_words
 from auron_tpu_torch.utils.shapes import bucket_rows
 
 #: flips the sign bit: int64 order of ``u ^ _SIGN`` is uint64 order of u
@@ -53,7 +57,7 @@ _LOW32 = 0xFFFFFFFF
 _SORTABLE = frozenset({DataType.BOOL, DataType.INT8, DataType.INT16,
                        DataType.INT32, DataType.INT64, DataType.FLOAT32,
                        DataType.FLOAT64, DataType.DATE32,
-                       DataType.TIMESTAMP_US})
+                       DataType.TIMESTAMP_US, DataType.STRING})
 
 
 def _uword(u: int) -> int:
@@ -67,14 +71,19 @@ def words_to_uint64(w) -> np.ndarray:
         ^ np.uint64(1 << 63)
 
 
-def order_words(col: PrimitiveColumn, ascending: bool,
+def order_words(col, ascending: bool,
                 nulls_first: bool) -> list[torch.Tensor]:
     """One sort key column as order-preserving int64 words, most
     significant first (the null-rank word is the caller's)."""
+    if isinstance(col, StringColumn):
+        be = string_be_words(col.chars)
+        words = [be[:, i] for i in range(be.shape[1])]
+        return words if ascending else [~w for w in words]
     if not isinstance(col, PrimitiveColumn):
         raise NotImplementedError(
             f"sort keys of {type(col).__name__}: the port sorts primitive "
-            "columns only")
+            "and string columns only (decimal128: ROADMAP item 16d, "
+            "struct: 16f)")
     d = col.data
     if d.dtype == torch.bool:
         w = d.to(torch.int64) ^ _SIGN
@@ -145,8 +154,14 @@ def _concat_all(batches: list[DeviceBatch]) -> DeviceBatch:
     cols = []
     for i in range(len(batches[0].columns)):
         parts = unify_column_widths([b.columns[i] for b in batches])
-        cols.append(PrimitiveColumn(torch.cat([p.data for p in parts]),
-                                    torch.cat([p.validity for p in parts])))
+        validity = torch.cat([p.validity for p in parts])
+        if isinstance(parts[0], StringColumn):
+            cols.append(StringColumn(torch.cat([p.chars for p in parts]),
+                                     torch.cat([p.lens for p in parts]),
+                                     validity))
+        else:
+            cols.append(PrimitiveColumn(torch.cat([p.data for p in parts]),
+                                        validity))
     live = torch.cat([b.row_mask() for b in batches])
     dev = batches[0].device
     stacked = DeviceBatch(tuple(cols), torch.full(
@@ -170,7 +185,8 @@ class SortOp(PhysicalOp):
             if dt not in _SORTABLE:
                 raise NotImplementedError(
                     f"sort key of type {dt.value}: the port sorts bool, "
-                    "integer, float, date and timestamp keys only")
+                    "integer, float, date, timestamp and string keys only "
+                    "(decimal: ROADMAP item 16d; nested: 16f)")
 
     @property
     def children(self):

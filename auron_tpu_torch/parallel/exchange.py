@@ -11,8 +11,11 @@ the first ``execute`` and memoized.
 
 A range exchange whose plan carries no bounds samples them from the
 leading input batches of the same pass, up to ``_RANGE_SAMPLE_ROWS``
-rows (``partitioning.compute_range_bounds``); the child runs once, and
-the sampled batches go first into the split.
+rows (``partitioning.compute_range_bounds``, with each key's word
+count, so a string key whose width grows later still meets its bounds
+word for word); the child runs once, and the sampled batches go first
+into the split. The split and the reducers' reads gather every column,
+string columns included.
 
 Host syncs: one readback of the per-partition counts per input batch;
 a range exchange also reads each sampled batch's row count and copies
@@ -42,7 +45,8 @@ from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       host_readback, timer)
 from auron_tpu_torch.parallel.partitioning import (RangePartitioning,
                                                    RoundRobinPartitioning,
-                                                   compute_range_bounds)
+                                                   compute_range_bounds,
+                                                   key_word_counts)
 from auron_tpu_torch.utils.shapes import bucket_rows
 
 #: rows sampled for range bounds, as in the reference, which samples
@@ -186,9 +190,11 @@ class ShuffleExchangeOp(PhysicalOp):
                 sampled += n
                 if sampled >= _RANGE_SAMPLE_ROWS:
                     break
+            orders = partitioning.sort_orders
             partitioning = RangePartitioning(
-                partitioning.sort_orders, n_out, compute_range_bounds(
-                    pending, partitioning.sort_orders, schema, n_out))
+                orders, n_out,
+                compute_range_bounds(pending, orders, schema, n_out),
+                key_word_counts(pending, orders, schema))
             self.partitioning = partitioning
         row_offset = 0
         for batch in itertools.chain(pending, batches):

@@ -7,21 +7,29 @@ and pmod, bit-identical to the reference; round-robin numbers rows from
 sampled bounds a row's sort words reach. The partition-id column is
 computed on the batch's device; what happens with it is the exchange's
 business. Range bounds are computed on the host, from sampled rows.
+
+A string key's words depend on its width (``ceil(width / 8)`` words),
+and a stream's width can grow after the bounds were sampled: the
+sampled batches are padded to their widest, ``key_words`` records each
+key's word count in the bounds, and a row or a bound with fewer words
+than the other is padded with the words of zero bytes, which is what a
+wider zero-padded string holds there.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from auron_tpu_torch.columnar.batch import DeviceBatch
+from auron_tpu_torch.columnar.batch import DeviceBatch, unify_column_widths
 from auron_tpu_torch.columnar.schema import Schema
 from auron_tpu_torch.exprs.eval import EvalContext, evaluate
 from auron_tpu_torch.ops import hashing
 from auron_tpu_torch.ops.base import host_copy
-from auron_tpu_torch.ops.sort import sort_key_words, words_to_uint64
+from auron_tpu_torch.ops.sort import (_SIGN, order_words, sort_key_words,
+                                      words_to_uint64)
 
 
 @dataclass(frozen=True)
@@ -64,14 +72,24 @@ class SinglePartitioning:
                            device=batch.device)
 
 
-def _range_words(batch: DeviceBatch, schema: Schema,
-                 sort_orders) -> list[torch.Tensor]:
-    """Each row's sort words (``ops.sort.sort_key_words``: int64 words
-    in uint64 order) for the range's sort orders."""
+def _key_columns(batch: DeviceBatch, schema: Schema, sort_orders) -> list:
     ctx = EvalContext()
-    cols = [evaluate(so.expr, batch, schema, ctx).col for so in sort_orders]
-    return sort_key_words(cols, [(so.ascending, so.nulls_first)
-                                 for so in sort_orders])
+    return [evaluate(so.expr, batch, schema, ctx).col for so in sort_orders]
+
+
+def _value_words(col) -> int:
+    """Order words of one key's value (its null-rank word excluded)."""
+    return len(order_words(col, True, True))
+
+
+def key_word_counts(sample_batches, sort_orders, schema: Schema) -> tuple:
+    """Each key's value-word count in bounds sampled from these batches
+    (a string key's at the widest sampled width)."""
+    cols = [_key_columns(b, schema, sort_orders) for b in sample_batches]
+    if not cols:
+        return ()
+    return tuple(_value_words(unify_column_widths(list(per_key))[0])
+                 for per_key in zip(*cols))
 
 
 @dataclass(frozen=True)
@@ -79,11 +97,34 @@ class RangePartitioning:
     """Range partitioning over sampled bounds. ``bounds`` is a host-side
     tuple of word tuples, one per boundary, in the reference's uint64
     words (python ints); the exchange samples them from its input when
-    the plan leaves them empty."""
+    the plan leaves them empty. ``key_words`` is each key's value-word
+    count in the bounds; empty means the rows' own."""
 
     sort_orders: tuple     # tuple[ir.SortOrder]
     num_partitions: int
     bounds: tuple          # tuple of word tuples, len <= num_partitions - 1
+    key_words: tuple = field(default=(), repr=False)
+
+    def _aligned(self, cols) -> tuple[list, list]:
+        """(row words, per-key word slices of a bound, each with the
+        uint64 word that pads it) at a common count per key."""
+        row, slices, off = [], [], 0
+        for i, (col, so) in enumerate(zip(cols, self.sort_orders)):
+            words = sort_key_words([col], [(so.ascending, so.nulls_first)])
+            n_row = len(words) - 1
+            n_bound = self.key_words[i] if self.key_words else n_row
+            n = max(n_row, n_bound)
+            if n > n_row:
+                # a valid row's missing words are zero bytes; a null's 0
+                fill = _SIGN if so.ascending else ~_SIGN
+                pad = torch.where(col.validity, fill, _SIGN)
+                words = words + [pad] * (n - n_row)
+            row.extend(words)
+            zero_word = 0 if so.ascending else (1 << 64) - 1
+            null_rank = 0 if so.nulls_first else 1
+            slices.append((off, n_bound, n, null_rank, zero_word))
+            off += 1 + n_bound
+        return row, slices
 
     def partition_ids(self, batch: DeviceBatch,
                       schema: Schema) -> torch.Tensor:
@@ -93,11 +134,19 @@ class RangePartitioning:
         pid = torch.zeros(cap, dtype=torch.int32, device=batch.device)
         if not self.bounds:
             return pid
-        row_words = _range_words(batch, schema, self.sort_orders)
+        row_words, slices = self._aligned(
+            _key_columns(batch, schema, self.sort_orders))
         for bound in self.bounds:
+            words = []
+            for off, n_bound, n, null_rank, zero_word in slices:
+                rank = bound[off]
+                value = list(bound[off + 1: off + 1 + n_bound])
+                value += [0 if rank == null_rank else zero_word] * (
+                    n - n_bound)
+                words += [rank] + value
             ge = torch.zeros(cap, dtype=torch.bool, device=batch.device)
             eq = torch.ones(cap, dtype=torch.bool, device=batch.device)
-            for w, bw in zip(row_words, bound):
+            for w, bw in zip(row_words, words):
                 b = int(bw) - (1 << 63)     # the uint64 word as int64
                 ge = ge | (eq & (w > b))
                 eq = eq & (w == b)
@@ -110,10 +159,15 @@ def compute_range_bounds(sample_batches, sort_orders, schema: Schema,
     """Bounds from sampled batches, on the host: the live rows' words
     (one device → host copy), sorted lexicographically with
     ``np.lexsort``, evenly spaced boundaries, equal neighbours dropped.
-    The word tuples are the reference's uint64 values."""
+    The word tuples are the reference's uint64 values; string keys are
+    padded to their widest sampled width first."""
+    orders = [(so.ascending, so.nulls_first) for so in sort_orders]
+    cols = [_key_columns(b, schema, sort_orders) for b in sample_batches]
+    cols = list(zip(*[unify_column_widths(list(per_key))
+                      for per_key in zip(*cols)])) if cols else []
     mats = []
-    for batch in sample_batches:
-        words = _range_words(batch, schema, list(sort_orders))
+    for batch, key_cols in zip(sample_batches, cols):
+        words = sort_key_words(list(key_cols), orders)
         mats.append(torch.stack(
             words + [batch.row_mask().to(torch.int64)], dim=1))
     if not mats:

@@ -16,9 +16,10 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from auron_tpu_torch.columnar.arrow_bridge import fetch_numpy
+from auron_tpu_torch.columnar.arrow_bridge import (fetch_numpy,
+                                                   strings_to_python)
 from auron_tpu_torch.columnar.batch import DeviceBatch
-from auron_tpu_torch.columnar.schema import Schema
+from auron_tpu_torch.columnar.schema import DataType, Schema
 from auron_tpu_torch.ops.base import ExecContext, PhysicalOp, host_readback
 
 
@@ -59,7 +60,9 @@ def collect_numpy(plan: PhysicalOp, num_partitions: int = 1, config=None,
                   ) -> dict[str, tuple[np.ndarray, np.ndarray]]:
     """Run every partition of a plan and concatenate, without pyarrow:
     ``{column name: (values, validity)}`` in row order. Null rows hold
-    whatever the device held (the reference's Arrow output masks them)."""
+    whatever the device held (the reference's Arrow output masks them);
+    a string column's values are an object array of ``str``, None where
+    null."""
     schema: Schema = plan.schema()
     parts: list[list[tuple[np.ndarray, np.ndarray]]] = [
         [] for _ in schema]
@@ -67,10 +70,13 @@ def collect_numpy(plan: PhysicalOp, num_partitions: int = 1, config=None,
         for b in run_partition(plan, p, num_partitions, config, metrics):
             cols, _n = fetch_numpy(b)
             for i, c in enumerate(cols):
+                if len(c) == 3:
+                    c = (strings_to_python(*c), c[2])
                 parts[i].append(c)
     out = {}
     for f, cols in zip(schema, parts):
-        dt = torch.empty(0, dtype=f.dtype.to_torch()).numpy().dtype
+        dt = np.dtype(object) if f.dtype == DataType.STRING else \
+            torch.empty(0, dtype=f.dtype.to_torch()).numpy().dtype
         data = np.concatenate([c[0] for c in cols]) if cols \
             else np.zeros(0, dt)
         valid = np.concatenate([c[1] for c in cols]) if cols \

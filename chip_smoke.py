@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-at-sf10]
+
+``--profile-at-sf10`` profiles each Session query of phases s, j and t
+over the SF10 files it times instead of SF1's: the launches and busy
+shares of the timed query, for measurement; the script then runs past
+the 1200 s it keeps to without it.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -95,13 +100,18 @@ s. q01, q10, q11 and q13 of ``it/queries.py`` through
    and ascending), each held in order against a numpy oracle: exact keys
    identical, float64 sum keys within 1e-12 of the customer's sum of |v|
    with swaps allowed only between near-ties, and rows that tie on every
-   key in either order. Each query but the keyless one is timed (one
-   run after the checked run: ``SESSION_RUNS``), profiled once (device
-   activity only) and its host syncs per input batch counted.
+   key in either order. Each query but the keyless one is run once
+   checked, which is also its warm-up and where its host syncs per
+   input batch are counted, then timed by the CUDA-synchronised wall of
+   one more run, and profiled once (device activity only) over SF1's
+   tables (``sf1_data``: scale 24 of the same generator and seed,
+   written once under the same directory; a depth cut that keeps the
+   script inside its limit, which ``--profile-at-sf10`` lifts).
 
 Hash joins and the broadcast exchange through the same Session, run
-after phase s (phase p also writes the date_dim and item tables of its
-draw, 730 and 240,000 rows, beside its fact files):
+after phase s (phase p also writes the date_dim, item, customer and
+store tables of its draw, 730, 240,000, 960,000 and 2,880 rows, beside
+its fact files):
 
 j. q05 (``it/queries.q05_dataframe``: date_dim of the year 2000 and
    store_sales, each hash-exchanged on the date, a ``HashJoinOp`` per
@@ -113,22 +123,45 @@ j. q05 (``it/queries.q05_dataframe``: date_dim of the year 2000 and
    oracle's joined rows, the hash-run index on every build side); then
    q09's anti and semi joins with a count (``cheap_sales_items_
    dataframe``: the 240,000 items against the sales under $1, broadcast)
-   against numpy's counts. Each is timed, profiled and its syncs counted
-   as in phase s. Then, checked only: every join type over
-   co-partitioned sides at SF1 (``outer_join_dataframe``, written under
-   the same directory), each row multiset held against numpy, and the
-   right and full joins over a broadcast build side, held against the
-   reference's rows (``it.queries.BROADCAST_OUTER_ROWS``).
-   ``cuda_sum_count.launches`` stays 0 across the phase.
+   against numpy's counts. Each is timed, profiled at SF1 and its syncs
+   counted as in phase s. Then, checked only: every join type over
+   co-partitioned sides at SF1 (``outer_join_dataframe``), each row
+   multiset held against numpy, and the right and full joins over a
+   broadcast build side, held against the reference's rows
+   (``it.queries.BROADCAST_OUTER_ROWS``). ``cuda_sum_count.launches``
+   stays 0 across the phase.
+
+String columns through the same Session, run after phase j over the
+same files (customer's ``c_state`` and ``c_email``, item's
+``i_category`` and store's ``s_state`` are strings, of widths 8, 32, 16
+and 8):
+
+t. q03 (a co-partitioned join on the item, ``i_category IN (...)``, a
+   group by the category), q04 (a join on the store, a group by
+   ``s_state``), q06 (a join on the customer, ``min``, ``max`` and
+   ``count`` of ``c_email`` per ``c_state``), q07 (two joins, a group by
+   ``(i_category, s_state)``, the top 50 by a float sum then both
+   strings), q08 (``i_category == 'Electronics'`` over a broadcast item
+   side, a semi join of the customers, a group by ``c_state``) and q09
+   (an anti join of the items, a group by ``i_category``), each checked
+   against a numpy oracle on the generated columns (string keys, counts
+   and emails identical; float sums within 1e-12 of the group's sum of
+   |v|; q07's rows in order, swaps allowed only between near-ties). Each
+   query's time is the CUDA-synchronised wall of its checked run (one
+   run), its host syncs per input batch are counted there, and it is
+   profiled once at SF1. Every AggOp's path and reason is checked:
+   ``sort`` (``float_sum_inexact``; ``acc_kind:smin`` for q06) or
+   ``hashtable`` (q08, q09). ``cuda_sum_count.launches`` stays 0.
 
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
 store_sales in one batch.
 
-Output: progress lines, then a JSON line of the stage's numbers and the
-comparisons, the ``{"kernels": [...]}`` line, the card's name and power
-limit as nvidia-smi prints them, and last ``{"ok": true, "device":
+Output: progress lines, then a JSON line of the stage's numbers, the
+pipeline, Session, join and string phases and the comparisons, the
+``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi prints them, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -208,14 +241,13 @@ TABLE_ROWS, JOIN_KEYS = 1 << 20, 1 << 18
 PIPE_SCALE, PIPE_PARTITIONS, PIPE_ORDER_SCALE = 240, 4, 1
 #: timed queries per plan, after one warm-up
 PIPE_RUNS = 3
-#: timed queries per query of the Session and join phases, after the
-#: checked run: one, so that the script stays well inside its 1200 s on
-#: a slow host (three took it to 1201.1 s on one; PERF.md)
-SESSION_RUNS = 1
-#: the join phase's dimension tables at SF10, written beside the fact
-#: files; the scale of its checked-only joins (SF1's 2,880,000 rows)
-JOIN_DIMENSIONS = ("date_dim", "item")
+#: the dimension tables of phases j and t at SF10, written beside the
+#: fact files; the scale of phase j's checked-only joins and of phase t's
+#: profiled queries (SF1's 2,880,000 rows)
+JOIN_DIMENSIONS = ("date_dim", "item", "customer", "store")
 JOIN_CHECK_SCALE = 24
+#: the string queries of phase t, in it/queries.py's order
+STRING_QUERIES = ("q03", "q04", "q06", "q07", "q08", "q09")
 #: the directory of the repo, under which the parquet run writes its files
 ROOT = Path(__file__).resolve().parent
 
@@ -1509,14 +1541,17 @@ def collect_partitions(session, df, metrics: dict):
 
 
 def run_session_query(label: str, make_df, verify, rows: int,
-                      by_partition=None) -> dict:
+                      make_profiled, by_partition=None,
+                      timed: bool = True) -> dict:
     """One query through the Session: a checked run, which is also the
     warm-up, with its host syncs counted (``host_readback`` and the hash
-    table's claim rounds), SESSION_RUNS timed queries, one profiled query
-    (device activity only). ``verify(table, partition_sizes)`` checks
-    the result and returns a summary of the check; the sizes are None
-    unless ``by_partition`` (the session) asks the checked run to
-    collect one partition at a time."""
+    table's claim rounds); when ``timed``, one timed query, whose wall
+    is the query's time (else the checked run's wall is); one profiled
+    query of ``make_profiled``'s DataFrame (device activity only).
+    ``verify(table, partition_sizes)`` checks the result and returns a
+    summary of the check; the sizes are None unless ``by_partition``
+    (the session) asks the checked run to collect one partition at a
+    time."""
     df = make_df()
     t0 = time.perf_counter()
     tree = df.explain()
@@ -1544,25 +1579,19 @@ def run_session_query(label: str, make_df, verify, rows: int,
     join = metrics["hash_join"].snapshot() if "hash_join" in metrics \
         else None
 
-    def query():
-        return make_df().collect()
-
-    t_step = time.perf_counter()
-    runs_ms = []
-    for _ in range(SESSION_RUNS):
+    ms = first_ms
+    if timed:
         t0 = time.perf_counter()
-        query()
+        make_df().collect()
         torch.cuda.synchronize()
-        runs_ms.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(runs_ms)
-    steps = {"timed_s": time.perf_counter() - t_step}
-    t_step = time.perf_counter()
-    prof = device_profile(query, iters=1, top=6, host_ops=False,
-                          warm=True)
-    steps["profile_s"] = time.perf_counter() - t_step
+        ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    prof = device_profile(lambda: make_profiled().collect(), iters=1, top=6,
+                          host_ops=False, warm=True)
+    profile_s = time.perf_counter() - t0
     out = {"rows": rows, "scanned_rows": scanned, "input_batches": batches,
            "plan_ms": plan_ms, "first_ms": first_ms, "ms": ms,
-           "runs_ms": runs_ms, "rows_per_s": rows / (ms / 1e3),
+           "timed": timed, "rows_per_s": rows / (ms / 1e3),
            "host_syncs": syncs, "host_syncs_hash_table": hash_syncs,
            "host_syncs_per_batch": syncs / batches,
            "groups": table.num_rows, "check": worst,
@@ -1572,18 +1601,42 @@ def run_session_query(label: str, make_df, verify, rows: int,
            "join": None if join is None else {
                k: v for k, v in join.items()
                if k.startswith("dispatch_") or k == "output_rows"},
-           "profile": prof, "steps_s": steps, "plan": tree,
+           "profile": prof, "profile_s": profile_s, "plan": tree,
            "table": table}
     log(f"session {label}: " + json.dumps(
         {k: v for k, v in out.items() if k != "table"}))
     return out
 
 
-def phase_session(dev, pipe: dict) -> dict:
+#: SF1's tables, drawn and written once (``sf1_data``)
+_SF1: dict = {}
+
+
+def sf1_data(seed: int, root: str) -> tuple[dict, dict]:
+    """TPC-DS SF1 (scale JOIN_CHECK_SCALE) from the same generator and
+    seed: (the drawn tables, {table: [parquet files]} under ``root``),
+    written on first use. Phases s, j and t profile their queries over
+    it, and phase j's checked-only joins run over it."""
+    from auron_tpu_torch.it import tpcds_data
+    if not _SF1:
+        t0 = time.perf_counter()
+        drawn = tpcds_data.draw_tables(JOIN_CHECK_SCALE, seed)
+        sf1 = str(Path(root) / "sf1")
+        files = {"store_sales": tpcds_data.write_store_sales(
+            sf1, drawn["store_sales"]),
+            **tpcds_data.write_dimensions(sf1, drawn, JOIN_DIMENSIONS)}
+        _SF1.update(drawn=drawn, files=files,
+                    write_s=time.perf_counter() - t0)
+        log(f"SF1 tables written in {_SF1['write_s']:.2f} s")
+    return _SF1["drawn"], _SF1["files"]
+
+
+def phase_session(dev, pipe: dict, seed: int, root: str,
+                  profile_sf10: bool) -> dict:
     """s. q01, q10, q11 and q13, a keyless aggregate, q02, q12 and q02's
     full sort through ``Session.read_parquet`` over phase p's 4 files,
     and a query over ``Session.from_arrow`` of the same table, on the
-    card."""
+    card; each profiled once at SF1 (at SF10 with ``profile_sf10``)."""
     import pyarrow as pa
     from auron_tpu_torch import entry as tentry
     from auron_tpu_torch.frontend.dataframe import col
@@ -1600,16 +1653,20 @@ def phase_session(dev, pipe: dict) -> dict:
     oracles = session_oracles(cols)
     oracle_s = time.perf_counter() - t0
     tables = {"store_sales": pipe["files"]}
+    small, sf1 = sf1_data(seed, root)
+    prof_tables = tables if profile_sf10 else sf1
     session = Session(device=dev)
     queries = {"q01": tq.q01_dataframe, "q10": tq.q10_dataframe,
                "q11": tq.q11_dataframe, "q13": tq.q13_dataframe}
-    out = {"rows": rows, "oracle_s": oracle_s}
+    out = {"rows": rows, "oracle_s": oracle_s,
+           "profile_scale": PIPE_SCALE if profile_sf10 else JOIN_CHECK_SCALE}
     gagg.cuda_sum_count.launches = 0
     for name, fn in queries.items():
         out[name] = run_session_query(
             name, lambda fn=fn: fn(session, tables),
             lambda t, _s, name=name: check_session_result(
-                t, oracles[name], name), rows)
+                t, oracles[name], name), rows,
+            make_profiled=lambda fn=fn: fn(session, prof_tables))
 
     # a global aggregate over the 4 files: partial → single exchange →
     # final, with no group key to hash
@@ -1634,18 +1691,20 @@ def phase_session(dev, pipe: dict) -> dict:
     out["q02"] = run_session_query(
         "q02", lambda: tq.q02_dataframe(session, tables),
         lambda t, _s: check_float_sort(t, sorts["q02"], "q02", 100),
-        rows)
+        rows, make_profiled=lambda: tq.q02_dataframe(session, prof_tables))
     out["q12"] = run_session_query(
         "q12", lambda: tq.q12_dataframe(session, tables),
         lambda t, _s: check_exact_sort(t, sorts["q12"],
                                        ["revenue", "ss_item_sk"], "q12"),
-        rows)
+        rows, make_profiled=lambda: tq.q12_dataframe(session, prof_tables))
     out["q02_full_sort"] = run_session_query(
         "q02_full_sort", lambda: tq.q02_dataframe(session, tables,
                                                   limit=None),
         lambda t, sizes: check_float_sort(t, sorts["q02"], "q02_full_sort",
                                           sizes=sizes),
-        rows, by_partition=session)
+        rows, by_partition=session,
+        make_profiled=lambda: tq.q02_dataframe(session, prof_tables,
+                                               limit=None))
     check(len(out["q02_full_sort"]["partition_rows"]) == 4,
           "q02_full_sort: 4 range partitions")
 
@@ -1673,9 +1732,13 @@ def phase_session(dev, pipe: dict) -> dict:
 
     # the in-memory table: one partition, a complete AggOp straight over
     # the memory scan, whose key domain the planner derives
+    def arrow_of(columns):
+        return pa.table({name: pa.array(v, mask=None if ok.all() else ~ok)
+                         for name, (v, ok) in columns.items()})
+
     t0 = time.perf_counter()
-    arrow = pa.table({name: pa.array(v, mask=None if ok.all() else ~ok)
-                      for name, (v, ok) in cols.items()})
+    arrow = arrow_of(cols)
+    arrow_prof = arrow if profile_sf10 else arrow_of(small["store_sales"])
     out["arrow_table_s"] = time.perf_counter() - t0
     plan = session.plan_physical(tq.store_quantity_dataframe(session, arrow))
     domain = int(cols["ss_store_sk"][0].max()) + 1
@@ -1686,7 +1749,9 @@ def phase_session(dev, pipe: dict) -> dict:
         "store_quantity (from_arrow)",
         lambda: tq.store_quantity_dataframe(session, arrow),
         lambda t, _s: check_session_result(t, oracles["store_quantity"],
-                                           "store_quantity"), rows)
+                                           "store_quantity"), rows,
+        make_profiled=lambda: tq.store_quantity_dataframe(session,
+                                                          arrow_prof))
     paths = out["store_quantity"]["agg_paths"]
     check(set(paths) == {"dispatch_cuda_dense"}
           and paths["dispatch_cuda_dense"] == 1,
@@ -1775,17 +1840,17 @@ def outer_join_oracle(tables: dict, how: str) -> "Counter":
     return rows
 
 
-def phase_joins(dev, pipe: dict, seed: int, root: str) -> dict:
+def phase_joins(dev, pipe: dict, seed: int, root: str,
+                profile_sf10: bool) -> dict:
     """j. Hash joins and the broadcast exchange through the Session on
     the card: q05 co-partitioned and over a broadcast build side, and
     q09's anti and semi joins counted, over phase p's SF10 files and the
-    dimension files written beside them, each timed as phase s times its
-    queries; then every join type over co-partitioned sides at SF1 and
-    the right and full joins over a broadcast build side, checked
-    only."""
+    dimension files written beside them, each timed and profiled as
+    phase s times and profiles its queries; then every join type over
+    co-partitioned sides at SF1 and the right and full joins over a
+    broadcast build side, checked only."""
     from auron_tpu_torch.frontend.session import Session
     from auron_tpu_torch.it import queries as tq
-    from auron_tpu_torch.it import tpcds_data
 
     t_phase = time.perf_counter()
     check(pipe["dim_files"] is not None,
@@ -1798,6 +1863,8 @@ def phase_joins(dev, pipe: dict, seed: int, root: str) -> dict:
            "item_rows": int(pipe["dims"]["item"]["i_item_sk"].size),
            "q09_build_rows": oracles["q09_build_rows"]}
     tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
+    small, sf1_tables = sf1_data(seed, root)
+    out["profile_scale"] = PIPE_SCALE if profile_sf10 else JOIN_CHECK_SCALE
     session = Session(device=dev)
     gagg.cuda_sum_count.launches = 0
     timed = {
@@ -1809,11 +1876,21 @@ def phase_joins(dev, pipe: dict, seed: int, root: str) -> dict:
         "q09_semi": lambda: tq.cheap_sales_items_dataframe(session, tables,
                                                            "semi"),
     }
+    on_sf1 = {
+        "q05": lambda: tq.q05_dataframe(session, sf1_tables),
+        "q05_broadcast": lambda: tq.q05_dataframe(
+            session, sf1_tables, co_partitioned=False),
+        "q09_anti": lambda: tq.cheap_sales_items_dataframe(
+            session, sf1_tables, "anti"),
+        "q09_semi": lambda: tq.cheap_sales_items_dataframe(
+            session, sf1_tables, "semi"),
+    }
     for name, make_df in timed.items():
         oracle = oracles["q05" if name.startswith("q05") else name]
         out[name] = run_session_query(
             name, make_df, lambda t, _s, o=oracle, n=name:
-            check_session_result(t, o, n), rows)
+            check_session_result(t, o, n), rows,
+            make_df if profile_sf10 else on_sf1[name])
         join = out[name]["join"]
         builds = 4 if name.startswith("q05") else 1
         check(join is not None and sum(
@@ -1831,13 +1908,6 @@ def phase_joins(dev, pipe: dict, seed: int, root: str) -> dict:
         del out[name]["table"]
 
     # every join type over co-partitioned sides at SF1, checked only
-    t0 = time.perf_counter()
-    small = tpcds_data.draw_tables(JOIN_CHECK_SCALE, seed)
-    sf1 = str(Path(root) / "sf1")
-    sf1_tables = {"store_sales": tpcds_data.write_store_sales(
-        sf1, small["store_sales"]),
-        **tpcds_data.write_dimensions(sf1, small, ("item",))}
-    out["checked_data_s"] = time.perf_counter() - t0
     out["checked"] = {}
     for how in ("inner", "left", "right", "full", "semi", "anti",
                 "existence"):
@@ -1871,10 +1941,244 @@ def phase_joins(dev, pipe: dict, seed: int, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# string columns: q03, q04 and q06-q09 through the Session
+# ---------------------------------------------------------------------------
+
+def _coded(values) -> tuple:
+    """(sorted distinct values, each value's index among them)."""
+    uniq = np.unique(np.asarray(values).astype(str))
+    return uniq, np.searchsorted(uniq, np.asarray(values).astype(str))
+
+
+def _by_code(codes, size: int, weights=None) -> np.ndarray:
+    return np.bincount(codes, weights=weights, minlength=size)
+
+
+def string_oracles(cols: dict, dims: dict) -> dict:
+    """q03, q04, q06, q08 and q09 in numpy over the generated columns, in
+    ``check_session_result``'s form (keys ascending), and q07's groups
+    for ``check_q07``. Strings are grouped through integer codes (their
+    rank among the distinct values); dimension keys are row numbers."""
+    item, store, cust = dims["item"], dims["store"], dims["customer"]
+    for name, table, sk in (("item", item, "i_item_sk"),
+                            ("store", store, "s_store_sk"),
+                            ("customer", cust, "c_customer_sk")):
+        check(np.array_equal(table[sk], np.arange(table[sk].size)),
+              f"{name}: its key is the row number")
+    cats, cat = _coded(item["i_category"])
+    states, s_state = _coded(store["s_state"])
+    c_states, c_state = _coded(cust["c_state"])
+    email = np.asarray(cust["c_email"], dtype=object)
+    item_sk, store_sk = cols["ss_item_sk"][0], cols["ss_store_sk"][0]
+    cust_sk, price = cols["ss_customer_sk"][0], cols["ss_sales_price"][0]
+    profit = cols["ss_net_profit"][0]
+    out = {}
+
+    def present(keys, rows, **columns):
+        hit = rows > 0
+        return {k: v[hit] for k, v in columns.items()}, keys[hit]
+
+    # q03: sales of items in Books, Music, Shoes, by category
+    code = cat[item_sk]
+    keep = np.isin(cats, ["Books", "Music", "Shoes"])[code]
+    rows = _by_code(code[keep], cats.size)
+    got, keys = present(cats, rows, n=rows,
+                        total=_by_code(code[keep], cats.size, price[keep]),
+                        scale=_by_code(code[keep], cats.size,
+                                       np.abs(price[keep])))
+    out["q03"] = ({"i_category": keys.astype(object),
+                   "total": got["total"], "n": got["n"].astype(np.int64)},
+                  {"total": got["scale"]})
+
+    # q04: sales by the state of their store
+    code = s_state[store_sk]
+    rows = _by_code(code, states.size)
+    got, keys = present(states, rows, n=rows,
+                        profit=_by_code(code, states.size, profit),
+                        scale=_by_code(code, states.size, np.abs(profit)))
+    out["q04"] = ({"s_state": keys.astype(object),
+                   "n": got["n"].astype(np.int64), "profit": got["profit"]},
+                  {"profit": got["scale"]})
+
+    # q06: per customer state, the least and greatest email of the
+    # customers with sales, and the sales of customers with an email
+    sold = np.bincount(cust_sk, minlength=c_state.size)
+    has = np.array([e is not None for e in email])
+    first, last, n, keys = [], [], [], []
+    for i, state in enumerate(c_states):
+        mine = c_state == i
+        bought = email[mine & has & (sold > 0)]
+        if not (mine & (sold > 0)).any():
+            continue
+        keys.append(state)
+        first.append(min(bought))
+        last.append(max(bought))
+        n.append(int(sold[mine & has].sum()))
+    out["q06"] = ({"c_state": np.array(keys, dtype=object),
+                   "first_email": np.array(first, dtype=object),
+                   "last_email": np.array(last, dtype=object),
+                   "n": np.array(n, np.int64)}, {})
+
+    # q07: paid per (category, state) over profitable sales
+    paid, paid_ok = cols["ss_net_paid"]
+    win = profit > 0
+    pair = cat[item_sk[win]] * states.size + s_state[store_sk[win]]
+    size = cats.size * states.size
+    v = np.where(paid_ok[win], paid[win], 0.0)
+    rows = _by_code(pair, size)
+    valid = _by_code(pair, size, paid_ok[win].astype(np.float64))
+    hit = rows > 0
+    check(bool((valid[hit] > 0).all()), "q07: every group has a paid value")
+    groups = np.flatnonzero(hit)
+    out["q07"] = {"category": cats[groups // states.size].astype(object),
+                  "state": states[groups % states.size].astype(object),
+                  "paid": _by_code(pair, size, v)[hit],
+                  "scale": _by_code(pair, size, np.abs(v))[hit]}
+
+    # q08: states of the customers who bought an Electronics item
+    electronics = np.flatnonzero(cats == "Electronics")[0]
+    buyers = np.zeros(c_state.size, bool)
+    buyers[cust_sk[cat[item_sk] == electronics]] = True
+    rows = _by_code(c_state[buyers], c_states.size)
+    got, keys = present(c_states, rows, n=rows)
+    out["q08"] = ({"c_state": keys.astype(object),
+                   "n": got["n"].astype(np.int64)}, {})
+
+    # q09: categories of the items never sold under $1
+    sold_cheap = np.zeros(cat.size, bool)
+    sold_cheap[item_sk[price < 1.0]] = True
+    rows = _by_code(cat[~sold_cheap], cats.size)
+    got, keys = present(cats, rows, n=rows)
+    out["q09"] = ({"i_category": keys.astype(object),
+                   "n": got["n"].astype(np.int64)}, {})
+    return out
+
+
+def check_q07(table, oracle: dict, label: str = "q07") -> dict:
+    """q07's top 50 (paid desc, category asc, state asc) against the
+    oracle, with ``check_float_sort``'s rule for near-ties: the table's
+    own order exact on its own values, every sum within 1e-12 of its
+    group's sum of |v|, and a position where the table's group is not
+    the oracle's allowed only between groups whose sums lie within the
+    sum of their tolerances."""
+    got_cat = np.asarray(table["i_category"].to_pylist(), dtype=object)
+    got_state = np.asarray(table["s_state"].to_pylist(), dtype=object)
+    paid = table["paid"].to_numpy()
+    n = table.num_rows
+    o_cat, o_state = oracle["category"], oracle["state"]
+    o_paid, o_scale = oracle["paid"], oracle["scale"]
+    order = sorted(range(o_paid.size),
+                   key=lambda i: (-o_paid[i], o_cat[i], o_state[i]))
+    check(n == min(50, o_paid.size), f"{label}: {n} rows")
+    check(table["paid"].null_count == 0, f"{label}: no null sums")
+    index = {(c, st): i for i, (c, st) in enumerate(zip(o_cat, o_state))}
+    at = np.array([index.get((c, st), -1)
+                   for c, st in zip(got_cat, got_state)])
+    check(bool((at >= 0).all()), f"{label}: every group is the oracle's")
+    err = np.abs(paid - o_paid[at])
+    check(bool((err <= F64_SUM_TOL * o_scale[at]).all()),
+          f"{label}: sums within {F64_SUM_TOL} of the group's sum of |v|")
+    for i in range(n - 1):
+        a = (-paid[i], got_cat[i], got_state[i])
+        b = (-paid[i + 1], got_cat[i + 1], got_state[i + 1])
+        check(a < b, f"{label}: rows in (paid desc, category, state) order")
+    want = np.array(order[:n])
+    moved = np.flatnonzero(at != want)
+    near = np.abs(o_paid[at[moved]] - o_paid[want[moved]]) <= F64_SUM_TOL \
+        * (o_scale[at[moved]] + o_scale[want[moved]])
+    check(bool(near.all()), f"{label}: the oracle's order, up to near-ties "
+          f"({moved.size} positions differ)")
+    return {"rows": n, "near_tie_swaps": int(moved.size),
+            "max_err_share": float((err / o_scale[at]).max())}
+
+
+def agg_decisions(session, df) -> list:
+    """Each AggOp of the query's physical plan: its mode, and the general
+    path's decision (backend and reason), taken without counting."""
+    from auron_tpu_torch.ops.agg import AggOp
+    from auron_tpu_torch.ops.base import ExecContext
+    out, todo = [], [session.plan_physical(df)]
+    while todo:
+        op = todo.pop()
+        todo.extend(op.children)
+        if isinstance(op, AggOp):
+            d = op._hash_dispatch(ExecContext(config=session.config),
+                                  record=False)
+            out.append({"mode": op.mode, "backend": d.backend,
+                        "reason": d.reason})
+    return out
+
+
+#: the general path each query's AggOps take, and why
+STRING_PATHS = {"q03": ("sort", "float_sum_inexact"),
+                "q04": ("sort", "float_sum_inexact"),
+                "q06": ("sort", "acc_kind:smin"),
+                "q07": ("sort", "float_sum_inexact"),
+                "q08": ("hashtable", "eligible"),
+                "q09": ("hashtable", "eligible")}
+
+
+def phase_strings(dev, pipe: dict, seed: int, root: str,
+                  profile_sf10: bool) -> dict:
+    """t. q03, q04 and q06-q09 through the Session over phase p's SF10
+    files and the customer, item and store tables written beside them:
+    each checked against numpy, timed by its checked run, its host syncs
+    counted, and profiled once at SF1 (at SF10 with ``profile_sf10``)."""
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+
+    t_phase = time.perf_counter()
+    check(pipe["dim_files"] is not None,
+          "the string phase reads parquet: pyarrow imports")
+    cols = pipe["cols"]
+    rows = cols["ss_store_sk"][0].size
+    t0 = time.perf_counter()
+    oracles = string_oracles(cols, pipe["dims"])
+    out = {"rows": rows, "oracle_s": time.perf_counter() - t0,
+           "customer_rows": int(pipe["dims"]["customer"]["c_customer_sk"]
+                                .size),
+           "item_rows": int(pipe["dims"]["item"]["i_item_sk"].size),
+           "store_rows": int(pipe["dims"]["store"]["s_store_sk"].size)}
+    tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
+    prof_tables = tables if profile_sf10 else sf1_data(seed, root)[1]
+    session = Session(device=dev)
+    gagg.cuda_sum_count.launches = 0
+    for name in STRING_QUERIES:
+        make = getattr(tq, f"{name}_dataframe")
+        if name == "q07":
+            def verify(t, _s, o=oracles["q07"]):
+                return check_q07(t, o)
+        else:
+            def verify(t, _s, o=oracles[name], n=name):
+                return check_session_result(t, o, n)
+        out[name] = run_session_query(
+            name, lambda m=make: m(session, tables), verify, rows,
+            lambda m=make: m(session, prof_tables), timed=False)
+        out[name]["profile_scale"] = PIPE_SCALE if profile_sf10 \
+            else JOIN_CHECK_SCALE
+        decisions = agg_decisions(session, make(session, tables))
+        out[name]["agg_decisions"] = decisions
+        want = STRING_PATHS[name]
+        check(bool(decisions) and all(
+            (d["backend"], d["reason"]) == want for d in decisions),
+            f"{name}: every AggOp takes {want}: {decisions}")
+        del out[name]["table"]
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    check(out["cuda_sum_count_launches"] == 0,
+          "no cuda_dense_sum_count launch on the string path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"string phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
                         help="seed of the pipeline phase's data")
+    parser.add_argument("--profile-at-sf10", action="store_true",
+                        help="profile the Session queries over the SF10 "
+                        "files they are timed on (runs past 1200 s)")
     args = parser.parse_args()
     card = phase_env()
     dev = torch.device("cuda")
@@ -1889,8 +2193,12 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix=".chip_smoke_parquet_", dir=ROOT)
     try:
         pipeline, pipe = phase_pipeline(dev, args.seed, rate, root)
-        session = phase_session(dev, pipe)
-        joins = phase_joins(dev, pipe, args.seed, root)
+        session = phase_session(dev, pipe, args.seed, root,
+                                args.profile_at_sf10)
+        joins = phase_joins(dev, pipe, args.seed, root,
+                            args.profile_at_sf10)
+        strings = phase_strings(dev, pipe, args.seed, root,
+                                args.profile_at_sf10)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del pipe
@@ -1916,7 +2224,8 @@ def main() -> int:
             "pipeline_dense": pipeline["dense"][
                 "cuda_sum_count_launches"],
             "session": session["cuda_sum_count_launches"],
-            "joins": joins["cuda_sum_count_launches"]},
+            "joins": joins["cuda_sum_count_launches"],
+            "strings": strings["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -1935,6 +2244,7 @@ def main() -> int:
     }
     report = {"build_s": build_s, "stages": other["stages"],
               "pipeline": pipeline, "session": session, "joins": joins,
+              "strings": strings,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

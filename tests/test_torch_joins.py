@@ -286,12 +286,13 @@ def test_null_column_for_field_matches_reference(dtype):
 
 
 def test_unported_joins_raise():
-    class _Strings(PhysicalOp):
+    class _Decimals(PhysicalOp):
         def schema(self):
-            return TSchema((TField("s", TDT.STRING),))
+            return TSchema((TField("d", TDT.DECIMAL),))
 
-    with pytest.raises(NotImplementedError, match="16c"):
-        TJoin(_Strings(), _Strings(), [tir.ColumnRef(0)], [tir.ColumnRef(0)])
+    with pytest.raises(NotImplementedError, match="16d"):
+        TJoin(_Decimals(), _Decimals(), [tir.ColumnRef(0)],
+              [tir.ColumnRef(0)])
     with pytest.raises(ValueError, match="cross"):
         _join(PORT, "int64-1_batch", "cross")
     op = _join(PORT, "int64-1_batch", "inner")

@@ -9,7 +9,8 @@ q02's full sort (a range exchange), a keyless aggregate, the in-memory
 query, a filtered global limit, a scan of two columns, a rename over a
 coalesce over a limit, and the join queries of ``torch_join_cases``
 (hash joins over hash exchanges and over broadcast exchanges, a
-filtered probe side wrapped in a stage of its own). The dense key
+filtered probe side wrapped in a stage of its own) and the string
+queries of ``torch_string_cases`` (q03, q04 and q06 to q09). The dense key
 domain the planner derives over an in-memory table equals the
 reference's, and is None on a float sum. Nodes the port has no
 operator for raise ``NotImplementedError`` naming them.
@@ -34,10 +35,11 @@ from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir.planner import PlannerContext, plan_from_bytes
 from auron_tpu_torch.runtime.executor import collect
 from tests import torch_join_cases as join_cases
+from tests import torch_string_cases as string_cases
 
 NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
          "keyless", "store_quantity", "float_sum", "limit", "rename",
-         "pruned") + join_cases.NAMES
+         "pruned") + join_cases.NAMES + string_cases.NAMES
 
 #: per operator: the fields it runs on, compared by repr
 FIELDS = {
@@ -120,6 +122,7 @@ def _ref_dataframes(session, tables, table) -> dict:
         partitions=2).group_by("ss_store_sk").agg(
         F.max(col("ss_quantity")).alias("top"))
     out.update(join_cases.reference_dataframes(session, tables))
+    out.update(string_cases.reference_dataframes(session, tables))
     return out
 
 

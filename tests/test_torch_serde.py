@@ -8,9 +8,12 @@
   query ``store_quantity_dataframe``, a scan of two columns and the join
   queries (``torch_join_cases``: q05 co-partitioned and over a broadcast
   build side, semi and anti against a broadcast, each join type
-  co-partitioned, right and full over a broadcast), the port
-  DataFrame's ``task_bytes()`` equals the reference DataFrame's byte for
-  byte;
+  co-partitioned, right and full over a broadcast) and the string
+  queries (``torch_string_cases``: q03, q04 and q06 to q09, with an
+  ``IN`` list and string comparisons), the port DataFrame's
+  ``task_bytes()`` equals the reference DataFrame's byte for byte;
+- ``InList`` over strings and numbers round-trips to the reference's
+  bytes; ``like`` raises naming ROADMAP item 17;
 - ``DataFrame.partitioning`` equals the reference's after every
   transform that carries, sets or drops it;
 - reference bytes parse in the port and port bytes in the reference;
@@ -40,9 +43,11 @@ from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir import serde as tserde
 from auron_tpu_torch.it import queries as tqueries
 from tests import torch_join_cases as join_cases
+from tests import torch_string_cases as string_cases
 
 NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
-         "keyless", "store_quantity", "pruned") + join_cases.NAMES
+         "keyless", "store_quantity", "pruned") + join_cases.NAMES \
+    + string_cases.NAMES
 
 
 def _exprs(ir, DT):
@@ -61,6 +66,9 @@ def _exprs(ir, DT):
         B("*", C(5), ir.Cast(C(4, "ss_quantity"), DT.FLOAT64)),
         ir.Cast(C(2), DT.INT32, safe=False),
         ir.Cast(ir.Cast(C(0), DT.DECIMAL, 12, 2), DT.FLOAT32),
+        ir.InList(C(1, "i_category"), ("Books", "Music", "日本")),
+        ir.InList(C(0), (1, 2, 3), True),
+        B("<", C(1), L("Electronics", DT.STRING)),
     ]
 
 
@@ -84,7 +92,7 @@ def _schema(S):
                          S.Field("x", DT.INT32), S.Field("y", DT.STRING)))))
 
 
-@pytest.mark.parametrize("i", range(16))
+@pytest.mark.parametrize("i", range(19))
 def test_expression_round_trip_and_bytes(i):
     got = _exprs(tir, tschema.DataType)[i]
     want = _exprs(rir, rschema.DataType)[i]
@@ -116,10 +124,10 @@ def test_schema_round_trip():
 
 
 def test_unported_expressions_raise_naming_the_node():
-    in_list = rir.InList(rir.ColumnRef(0), (1, 2))
+    like = rir.Like(rir.ColumnRef(0), "a%")
     node = tpb.ExprNode.FromString(
-        rserde.expr_to_proto(in_list).SerializeToString())
-    with pytest.raises(NotImplementedError, match="in_list"):
+        rserde.expr_to_proto(like).SerializeToString())
+    with pytest.raises(NotImplementedError, match="like.*item 17"):
         tserde.parse_expr(node)
     with pytest.raises(NotImplementedError, match="negative"):
         tserde.parse_expr(tpb.ExprNode(unary=tpb.UnaryE(
@@ -186,6 +194,7 @@ def task_bytes(tmp_path_factory):
                     F.sum(rdf.col("ss_quantity")).alias("qty")),
                "pruned": _pruned(rs, tables, rdf)}
     ref.update(join_cases.reference_dataframes(rs, tables))
+    ref.update(string_cases.reference_dataframes(rs, tables))
     port = {"q01": tqueries.q01_dataframe(ts, tables),
             "q02": tqueries.q02_dataframe(ts, tables),
             "q10": tqueries.q10_dataframe(ts, tables),
@@ -197,6 +206,7 @@ def task_bytes(tmp_path_factory):
             "store_quantity": tqueries.store_quantity_dataframe(ts, table),
             "pruned": _pruned(ts, tables, tdf)}
     port.update(join_cases.port_dataframes(ts, tables))
+    port.update(string_cases.port_dataframes(ts, tables))
     return {n: (port[n].task_bytes(), ref[n].task_bytes(),
                 port[n], ref[n]) for n in NAMES}
 

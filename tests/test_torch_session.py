@@ -30,7 +30,8 @@ in-memory query ``store_quantity_dataframe`` run through
   held against the reference's in ``test_torch_joins.py``,
   ``test_torch_serde.py`` and ``test_torch_planner.py``;
 - ``read_parquet(files, columns=...)`` of a file that holds strings
-  gives the reference's schema and rows when no string is asked for;
+  gives the reference's schema and rows when no string is asked for,
+  and so does reading every column, the strings included;
 - a Session or an Arrow scan built without a device raises where CUDA is
   absent.
 """
@@ -373,8 +374,8 @@ def test_broadcast_outer_joins_keep_the_reference_rows(how, join_results):
 
 def test_read_parquet_prunes_before_converting(data):
     """item holds strings; asking for its integer and float columns only
-    gives the reference's schema and rows. Without ``columns`` the
-    strings still raise."""
+    gives the reference's schema and rows, and so does asking for every
+    column (its strings included)."""
     tables = data[0]
     cols = ["i_current_price", "i_item_sk"]
     rs = RSession()
@@ -384,5 +385,8 @@ def test_read_parquet_prunes_before_converting(data):
     assert [(f.name, f.dtype.value, f.nullable) for f in got.schema] == \
         [(f.name, f.dtype.value, f.nullable) for f in want.schema]
     assert got.collect().equals(want.collect())
-    with pytest.raises(NotImplementedError, match="string"):
-        ts.read_parquet(tables["item"])
+    whole = ts.read_parquet(tables["item"])
+    ref_whole = rs.read_parquet(tables["item"])
+    assert [(f.name, f.dtype.value) for f in whole.schema] == \
+        [(f.name, f.dtype.value) for f in ref_whole.schema]
+    assert whole.collect().equals(ref_whole.collect())

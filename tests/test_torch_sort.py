@@ -238,12 +238,12 @@ def test_concat_all_matches_reference():
 
 
 def test_sort_op_refuses_unported_key_types():
-    class _Strings(PhysicalOp):
+    class _Decimals(PhysicalOp):
         def schema(self):
-            return Schema((Field("s", TDT.STRING),))
+            return Schema((Field("d", TDT.DECIMAL),))
 
-    with pytest.raises(NotImplementedError, match="string"):
-        tsort.SortOp(_Strings(), [tir.SortOrder(tir.ColumnRef(0))])
+    with pytest.raises(NotImplementedError, match="decimal"):
+        tsort.SortOp(_Decimals(), [tir.SortOrder(tir.ColumnRef(0))])
 
 
 # ---------------------------------------------------------------------------
