@@ -32,6 +32,11 @@ class DataType(enum.Enum):
     NULL = "null"
 
     @property
+    def is_integer(self) -> bool:
+        return self in (DataType.INT8, DataType.INT16, DataType.INT32,
+                        DataType.INT64)
+
+    @property
     def is_floating(self) -> bool:
         return self in (DataType.FLOAT32, DataType.FLOAT64)
 

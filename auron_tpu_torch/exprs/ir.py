@@ -1,8 +1,10 @@
-"""Physical expression IR, the subset the ported slice evaluates.
+"""Physical expression IR, the subset the port evaluates.
 
-A copy of the first nodes of ``auron_tpu.exprs.ir``: frozen dataclass
+A copy of the scalar nodes of ``auron_tpu.exprs.ir``: frozen dataclass
 trees, hashable and comparable, with the same fields, so a tree built for
-one package reads the same in the other.
+one package reads the same in the other. The reference's bloom-filter
+probe, scalar subquery, row-number, partition-id, monotonic-id and host
+UDF nodes (ROADMAP item 17b) and struct field access (16f) are not here.
 """
 
 from __future__ import annotations
@@ -72,6 +74,29 @@ class IsNotNull(Expr):
 
 
 @dataclass(frozen=True)
+class Negative(Expr):
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class CaseWhen(Expr):
+    """CASE WHEN c1 THEN v1 ... ELSE e END; when_then pairs, else optional."""
+    when_then: tuple[tuple[Expr, Expr], ...]
+    otherwise: Optional[Expr] = None
+
+    def children(self):
+        out = []
+        for w, t in self.when_then:
+            out += [w, t]
+        if self.otherwise is not None:
+            out.append(self.otherwise)
+        return tuple(out)
+
+
+@dataclass(frozen=True)
 class InList(Expr):
     child: Expr
     values: tuple[Any, ...]   # python scalars (non-null)
@@ -90,6 +115,69 @@ class Cast(Expr):
     # try_cast: null on failure instead of error (reference: TryCast,
     # datafusion-ext-exprs/src/cast.rs)
     safe: bool = True
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class Like(Expr):
+    """LIKE with a constant pattern; lowered to starts/ends/contains/regex."""
+    child: Expr
+    pattern: str
+    negated: bool = False
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class StringStartsWith(Expr):
+    child: Expr
+    prefix: str
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class StringEndsWith(Expr):
+    child: Expr
+    suffix: str
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class StringContains(Expr):
+    child: Expr
+    infix: str
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class ScalarFunction(Expr):
+    """Named scalar function from the registry (``exprs/functions.py``)."""
+    name: str
+    args: tuple[Expr, ...]
+    # some functions need a target type/scale (e.g. make_decimal)
+    dtype: Optional[DataType] = None
+    precision: int = 0
+    scale: int = 0
+
+    def children(self):
+        return self.args
+
+
+@dataclass(frozen=True)
+class GetIndexedField(Expr):
+    """list[ordinal] element access, 0-based; the port evaluates it over
+    ``split(...)`` only."""
+    child: Expr
+    ordinal: int
 
     def children(self):
         return (self.child,)

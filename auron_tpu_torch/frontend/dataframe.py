@@ -4,9 +4,9 @@ The port of ``auron_tpu.frontend.dataframe`` for the expressions and
 transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
-query; what the port cannot plan yet (string predicates such as
-``like`` and ``startswith``, scalar functions, DISTINCT aggregates,
-windows, host functions) raises ``NotImplementedError`` or is absent.
+query; what the port cannot plan yet (DISTINCT aggregates, windows,
+host functions, the scalar functions of ROADMAP items 16f and 17b)
+raises ``NotImplementedError`` or is absent.
 
 Each DataFrame carries the reference's ``partitioning`` provenance, the
 layout its partitions are known to have. It never enters the task
@@ -18,7 +18,7 @@ every transform.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
@@ -80,21 +80,20 @@ class Col:
             values[0], (list, tuple)) else values
         return Col(("in", self, tuple(vals)))
 
-    def _string_predicate(self, name: str, _pattern: str):
-        raise NotImplementedError(
-            f"Col.{name}: the string predicates come with ROADMAP item 17")
-
     def like(self, pattern: str) -> "Col":
-        return self._string_predicate("like", pattern)
+        return Col(("like", self, pattern))
 
     def startswith(self, prefix: str) -> "Col":
-        return self._string_predicate("startswith", prefix)
+        return Col(("startswith", self, prefix))
 
     def endswith(self, suffix: str) -> "Col":
-        return self._string_predicate("endswith", suffix)
+        return Col(("endswith", self, suffix))
 
-    def contains(self, sub: str) -> "Col":
-        return self._string_predicate("contains", sub)
+    def contains(self, infix: str) -> "Col":
+        return Col(("contains", self, infix))
+
+    def getitem(self, ordinal: int) -> "Col":
+        return Col(("index", self, ordinal))
 
     def asc(self, nulls_first: bool = True) -> "SortCol":
         return SortCol(self, True, nulls_first)
@@ -159,6 +158,8 @@ def _py_dtype(v) -> DataType:
 
 
 _UNARY = {"not": ir.Not, "is_null": ir.IsNull, "is_not_null": ir.IsNotNull}
+_STRING_PRED = {"like": ir.Like, "startswith": ir.StringStartsWith,
+                "endswith": ir.StringEndsWith, "contains": ir.StringContains}
 
 
 def resolve(c: Col, schema: Schema) -> ir.Expr:
@@ -184,35 +185,38 @@ def resolve(c: Col, schema: Schema) -> ir.Expr:
         return ir.Cast(resolve(child, schema), dtype, p, s)
     if tag == "in":
         return ir.InList(resolve(n[1], schema), tuple(n[2]))
+    if tag in _STRING_PRED:
+        return _STRING_PRED[tag](resolve(n[1], schema), n[2])
+    if tag == "index":
+        return ir.GetIndexedField(resolve(n[1], schema), n[2])
+    if tag == "fn":
+        _, fname, args = n
+        return ir.ScalarFunction(
+            fname, tuple(resolve(a, schema) for a in args))
     raise NotImplementedError(f"cannot resolve column node {tag!r}")
 
 
 class _Functions:
-    """``functions.sum(col)`` / ``functions.count_star()``: the aggregate
-    builders of the aggregates the port's AggOp runs."""
+    """``functions.upper(col)`` / ``functions.sum(col)`` / ...: scalar
+    function and aggregate builders. A name that is not an aggregate
+    builds a ``ScalarFunction`` of that name, a trailing ``_`` stripped
+    (``if_`` → ``if``); the planner raises for a name the port does not
+    register."""
 
-    @staticmethod
-    def _agg(fn: str, c, distinct: bool) -> AggCol:
-        return AggCol(fn, _wrap(c) if c is not None else None,
-                      distinct=distinct)
+    _AGGS = {"sum", "count", "avg", "min", "max", "first",
+             "first_ignores_null", "collect_list", "collect_set"}
 
-    def sum(self, c, distinct: bool = False) -> AggCol:
-        return self._agg("sum", c, distinct)
+    def __getattr__(self, name: str) -> Callable[..., Any]:
+        fname = name.rstrip("_")
+        if fname in self._AGGS:
+            def agg_builder(c: Optional[Col] = None, distinct=False):
+                return AggCol(fname, _wrap(c) if c is not None else None,
+                              distinct=distinct)
+            return agg_builder
 
-    def count(self, c, distinct: bool = False) -> AggCol:
-        return self._agg("count", c, distinct)
-
-    def avg(self, c, distinct: bool = False) -> AggCol:
-        return self._agg("avg", c, distinct)
-
-    def min(self, c, distinct: bool = False) -> AggCol:
-        return self._agg("min", c, distinct)
-
-    def max(self, c, distinct: bool = False) -> AggCol:
-        return self._agg("max", c, distinct)
-
-    def first(self, c, distinct: bool = False) -> AggCol:
-        return self._agg("first", c, distinct)
+        def builder(*args):
+            return Col(("fn", fname, tuple(_wrap(a) for a in args)))
+        return builder
 
     def count_star(self) -> AggCol:
         return AggCol("count_star", None)

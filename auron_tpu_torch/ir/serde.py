@@ -3,8 +3,8 @@
 The port of ``auron_tpu.ir.serde``, for the expression nodes the port
 evaluates: the DataFrame front end serializes plans with ``*_to_proto``
 and the planner parses incoming protos with ``parse_*``. Every other
-expression node raises ``NotImplementedError`` naming it, in both
-directions.
+expression node raises ``NotImplementedError`` naming it and the ROADMAP
+item that brings it, in both directions.
 """
 
 from __future__ import annotations
@@ -77,7 +77,19 @@ def parse_schema(p: pb.SchemaP) -> Schema:
 # expressions
 # ---------------------------------------------------------------------------
 
-_UNARY = {ir.Not: "not", ir.IsNull: "is_null", ir.IsNotNull: "is_not_null"}
+_UNARY = {ir.Not: "not", ir.IsNull: "is_null", ir.IsNotNull: "is_not_null",
+          ir.Negative: "negative"}
+
+_STRING_PRED = {ir.StringStartsWith: ("starts_with", "prefix"),
+                ir.StringEndsWith: ("ends_with", "suffix"),
+                ir.StringContains: ("contains", "infix")}
+_PARSE_STRING_PRED = {kind: cls for cls, (kind, _) in _STRING_PRED.items()}
+
+#: expression kinds of the proto the port does not evaluate, with the
+#: ROADMAP item that brings each
+_UNPORTED_KINDS = {"nullary": "17b", "host_udf": "17b",
+                   "bloom_might_contain": "17b", "scalar_subquery": "17b",
+                   "get_struct_field": "16f"}
 _PARSE_UNARY = {v: k for k, v in _UNARY.items()}
 
 
@@ -129,11 +141,41 @@ def expr_to_proto(e: ir.Expr) -> pb.ExprNode:
         return pb.ExprNode(cast=pb.CastE(
             child=expr_to_proto(e.child), dtype=_DT_TO_P[e.dtype],
             precision=e.precision, scale=e.scale, ansi=not e.safe))
+    if isinstance(e, ir.CaseWhen):
+        node = pb.CaseWhenE()
+        for when, then in e.when_then:
+            node.branches.append(pb.CaseWhenE.Branch(
+                when=expr_to_proto(when), then=expr_to_proto(then)))
+        if e.otherwise is not None:
+            node.else_expr.CopyFrom(expr_to_proto(e.otherwise))
+        return pb.ExprNode(case_when=node)
     if isinstance(e, ir.InList):
         node = pb.InListE(child=expr_to_proto(e.child), negated=e.negated)
         for v in e.values:
             node.values.append(_literal_to_proto(v, _scalar_dtype(v)))
         return pb.ExprNode(in_list=node)
+    if isinstance(e, ir.Like):
+        return pb.ExprNode(like=pb.LikeE(
+            child=expr_to_proto(e.child), pattern=e.pattern,
+            negated=e.negated))
+    pred = _STRING_PRED.get(type(e))
+    if pred is not None:
+        kind, attr = pred
+        return pb.ExprNode(string_pred=pb.StringPredE(
+            kind=kind, child=expr_to_proto(e.child),
+            pattern=getattr(e, attr)))
+    if isinstance(e, ir.ScalarFunction):
+        node = pb.ScalarFunctionE(
+            name=e.name, args=[expr_to_proto(a) for a in e.args])
+        if e.dtype is not None:
+            node.has_dtype = True
+            node.dtype = _DT_TO_P[e.dtype]
+            node.precision = e.precision
+            node.scale = e.scale
+        return pb.ExprNode(scalar_function=node)
+    if isinstance(e, ir.GetIndexedField):
+        return pb.ExprNode(get_indexed_field=pb.GetIndexedFieldE(
+            child=expr_to_proto(e.child), ordinal=e.ordinal))
     raise NotImplementedError(f"expr_to_proto: {type(e).__name__}")
 
 
@@ -174,10 +216,30 @@ def parse_expr(p: pb.ExprNode) -> ir.Expr:
                          tuple(_parse_literal(v).value
                                for v in p.in_list.values),
                          p.in_list.negated)
-    if kind in ("like", "string_pred"):
+    if kind == "case_when":
+        branches = tuple((parse_expr(b.when), parse_expr(b.then))
+                         for b in p.case_when.branches)
+        otherwise = (parse_expr(p.case_when.else_expr)
+                     if p.case_when.HasField("else_expr") else None)
+        return ir.CaseWhen(branches, otherwise)
+    if kind == "like":
+        return ir.Like(parse_expr(p.like.child), p.like.pattern,
+                       p.like.negated)
+    if kind == "string_pred":
+        cls = _PARSE_STRING_PRED[p.string_pred.kind]
+        return cls(parse_expr(p.string_pred.child), p.string_pred.pattern)
+    if kind == "scalar_function":
+        sf = p.scalar_function
+        return ir.ScalarFunction(
+            sf.name, tuple(parse_expr(a) for a in sf.args),
+            dtype=_P_TO_DT[sf.dtype] if sf.has_dtype else None,
+            precision=sf.precision, scale=sf.scale)
+    if kind == "get_indexed_field":
+        return ir.GetIndexedField(parse_expr(p.get_indexed_field.child),
+                                  p.get_indexed_field.ordinal)
+    if kind in _UNPORTED_KINDS:
         raise NotImplementedError(
-            f"parse_expr: {kind} (the string predicates come with ROADMAP "
-            "item 17)")
+            f"parse_expr: {kind} (ROADMAP item {_UNPORTED_KINDS[kind]})")
     raise NotImplementedError(f"parse_expr: {kind}")
 
 

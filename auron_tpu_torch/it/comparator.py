@@ -10,6 +10,16 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
+#: float columns named with this prefix hold transcendental results (exp,
+#: log, pow, trigonometric, hyperbolic, cbrt, hypot, atan2): they may
+#: differ from the reference's, or between devices, by a few units in the
+#: last place
+ULP_PREFIX = "u_"
+
+#: the units in the last place those columns may differ by: the largest
+#: gap measured between torch's and XLA's CPU results is 7 (tanh)
+ULP_BOUND = 8
+
 
 @dataclass
 class ComparisonResult:
@@ -96,3 +106,53 @@ class QueryResultComparator:
                                                 mismatches=mismatches)
         return ComparisonResult(name, not mismatches, got.num_rows,
                                 mismatches=mismatches)
+
+
+def compare_cells(want, got):
+    """Two pyarrow tables cell by cell, in row order: equal names and
+    types, equal nulls, strings byte for byte, every other value exactly
+    (floats bit for bit, NaN equal to NaN), but the float columns named
+    with ``ULP_PREFIX``, which may differ by ``ULP_BOUND`` units in the
+    last place. Returns (mismatch messages, {ulp column: largest difference
+    in units in the last place})."""
+    import numpy as np
+    import pyarrow as pa
+    bad, seen = [], {}
+    if want.column_names != got.column_names or \
+            want.num_rows != got.num_rows:
+        return [f"shape {want.column_names}/{want.num_rows} != "
+                f"{got.column_names}/{got.num_rows}"], seen
+    for name in want.column_names:
+        w, g = want[name].combine_chunks(), got[name].combine_chunks()
+        if not w.type.equals(g.type):
+            bad.append(f"{name}: type {w.type} != {g.type}")
+            continue
+        if not np.array_equal(w.is_null().to_numpy(zero_copy_only=False),
+                              g.is_null().to_numpy(zero_copy_only=False)):
+            bad.append(f"{name}: nulls differ")
+            continue
+        if pa.types.is_string(w.type):
+            # a byte above 0x7F alone (chr) is not UTF-8: compare bytes
+            w, g = w.cast(pa.binary()), g.cast(pa.binary())
+        if not pa.types.is_floating(w.type):
+            if not w.equals(g):
+                bad.append(f"{name}: values differ")
+            continue
+        keep = ~w.is_null().to_numpy(zero_copy_only=False)
+        wa = w.fill_null(0).to_numpy(zero_copy_only=False)[keep]
+        ga = g.fill_null(0).to_numpy(zero_copy_only=False)[keep]
+        if not np.array_equal(np.isnan(wa), np.isnan(ga)):
+            bad.append(f"{name}: NaNs differ")
+            continue
+        real = ~np.isnan(wa)
+        iv = np.int64 if wa.dtype == np.float64 else np.int32
+        diff = np.abs(wa[real].view(iv).astype(np.int64)
+                      - ga[real].view(iv).astype(np.int64))
+        worst = int(diff.max(initial=0))
+        limit = ULP_BOUND if name.startswith(ULP_PREFIX) else 0
+        if limit:
+            seen[name] = worst
+        if worst > limit:
+            bad.append(f"{name}: {worst} units in the last place apart "
+                       f"(limit {limit})")
+    return bad, seen

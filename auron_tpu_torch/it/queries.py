@@ -17,7 +17,10 @@ More queries of the same shapes:
 - ``outer_join_dataframe``, a co-partitioned join of every type that
   leaves rows unmatched on both sides;
 - ``broadcast_outer_dataframe``, the right or full join over a
-  broadcast build side whose rows are ``BROADCAST_OUTER_ROWS``.
+  broadcast build side whose rows are ``BROADCAST_OUTER_ROWS``;
+- ``expression_sweep_dataframe``, a select over the customer or the
+  item table that calls every scalar function and expression node the
+  port evaluates.
 
 pyarrow and pandas are imported inside the functions.
 """
@@ -25,10 +28,12 @@ pyarrow and pandas are imported inside the functions.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable
 
 from auron_tpu_torch.columnar.schema import DataType
-from auron_tpu_torch.frontend.dataframe import col
+from auron_tpu_torch.exprs import ir
+from auron_tpu_torch.frontend.dataframe import Col, col, lit
 from auron_tpu_torch.frontend.dataframe import functions as F
 
 
@@ -442,6 +447,221 @@ def _q13_oracle(p):
         buyers=("ss_customer_sk", "nunique")).reset_index()
 
 
+# q14: string functions over a dimension table (initcap, substring_index,
+# concat_ws), then an aggregate on the derived string key and a sort
+
+def q14_dataframe(s, t):
+    return (_dim(s, t, "item")
+            .select(col("i_item_sk"),
+                    F.initcap(col("i_category")).alias("cat_title"),
+                    F.substring_index(col("i_brand"), lit("#"), lit(1))
+                    .alias("brand_name"),
+                    F.concat_ws(lit("/"), col("i_category"),
+                                col("i_brand")).alias("path"))
+            .filter(col("i_item_sk") >= 0)
+            .group_by("cat_title")
+            .agg(F.count_star().alias("n"),
+                 F.min(col("path")).alias("first_path"))
+            .sort(col("cat_title").asc()))
+
+
+def _q14_oracle(p):
+    it = p["item"].copy()
+    it["cat_title"] = it.i_category.str.title()
+    it["path"] = it.i_category + "/" + it.i_brand
+    g = (it.groupby("cat_title")
+           .agg(n=("i_item_sk", "size"), first_path=("path", "min"))
+           .reset_index())
+    return g.sort_values("cat_title")[["cat_title", "n", "first_path"]]
+
+
+# the expression sweep: every scalar function and node, over customer
+# and item
+
+#: the DataFrame DSL the sweep is written in; a test passes the JAX
+#: package's to build the same query there
+PORT_DSL = SimpleNamespace(col=col, lit=lit, F=F, ir=ir, Col=Col,
+                           DataType=DataType)
+
+
+def _sweep_customer(df, d):
+    """Dates, timestamps, strings, LIKE, hashes and nulls over customer:
+    c_customer_sk, c_birth_year, c_state (8 wide) and c_email (32 wide,
+    ~2% null)."""
+    col, lit, F, ir, T = d.col, d.lit, d.F, d.ir, d.DataType
+    sk, by = col("c_customer_sk"), col("c_birth_year")
+    st, em = col("c_state"), col("c_email")
+    day = F.make_date(by, sk % 12 + 1, sk % 28 + 1)   # 1930–2004
+    ts = (sk * 123456789 - 50_000_000_000_000).cast(T.TIMESTAMP_US)
+    i_st = df.schema.index_of("c_state")
+    i_sk = df.schema.index_of("c_customer_sk")
+    bound = lambda i, n: d.ir.ColumnRef(i, n)
+    case = d.Col(ir.CaseWhen(
+        ((ir.BinaryExpr("==", bound(i_st, "c_state"),
+                        ir.Literal("CA", T.STRING)),
+          ir.Literal("California, the golden state", T.STRING)),
+         (ir.BinaryExpr(">", bound(i_sk, "c_customer_sk"),
+                        ir.Literal(500, T.INT64)), bound(i_st, "c_state"))),
+        None))
+    return df.select(
+        sk, F.year(day).alias("year"), F.month(ts).alias("month"),
+        F.day(day).alias("day"), F.dayofmonth(ts).alias("dayofmonth"),
+        F.quarter(day).alias("quarter"), F.dayofweek(day).alias("dow"),
+        F.dayofyear(ts).alias("doy"),
+        F.date_add(day, sk % 40).alias("date_add"),
+        F.date_sub(day, lit(3)).alias("date_sub"),
+        F.datediff(day, F.make_date(lit(2000), lit(1), lit(1)))
+        .alias("datediff"),
+        F.hour(ts).alias("hour"), F.minute(ts).alias("minute"),
+        F.second(ts).alias("second"),
+        F.date_format(ts, lit("yyyy-MM-dd HH:mm:ss.SSS")).alias("fmt"),
+        F.from_unixtime(sk * 3607).alias("from_unixtime"),
+        F.to_unix_timestamp(ts).alias("to_unix"),
+        F.unix_timestamp(day).alias("unix"),
+        F.trunc(day, lit("quarter")).alias("trunc"),
+        F.date_trunc(lit("week"), ts).alias("date_trunc"),
+        F.add_months(day, sk % 25 - 12).alias("add_months"),
+        F.last_day(day).alias("last_day"),
+        F.months_between(ts, day).alias("months_between"),
+        F.weekofyear(day).alias("weekofyear"),
+        F.next_day(day, lit("Friday")).alias("next_day"),
+        F.to_date(ts).alias("to_date"),
+        F.length(em).alias("length"), F.char_length(st).alias("char_len"),
+        F.upper(em).alias("upper"), F.lower(st).alias("lower"),
+        F.trim(F.concat(lit("  "), st, lit(" "))).alias("trim"),
+        F.ltrim(F.concat(lit(" "), st)).alias("ltrim"),
+        F.rtrim(F.concat(st, lit("  "))).alias("rtrim"),
+        F.substring(em, sk % 7 - 3, lit(5)).alias("substring"),
+        F.substr(em, lit(3)).alias("substr"),
+        F.concat(st, lit("-"), em).alias("concat"),
+        F.concat_ws(lit("/"), st, em, st).alias("concat_ws"),
+        F.initcap(F.concat_ws(lit(" "), st, em)).alias("initcap"),
+        F.repeat(st, lit(3)).alias("repeat"), F.reverse(em).alias("reverse"),
+        F.lpad(st, lit(6), lit("*")).alias("lpad"),
+        F.rpad(em, lit(40), lit("ab")).alias("rpad"),
+        F.left(em, lit(4)).alias("left"), F.right(em, sk % 5).alias("right"),
+        F.space(lit(3)).alias("space"), F.ascii(em).alias("ascii"),
+        F.chr(sk % 128).alias("chr"), F.char(by).alias("char"),
+        F.instr(em, lit("@")).alias("instr"),
+        F.locate(lit("e"), em, lit(3)).alias("locate"),
+        F.position(lit("xa"), em).alias("position"),
+        F.substring_index(em, lit("."), lit(-1)).alias("tld"),
+        F.substring_index(em, lit("@"), lit(1)).alias("user"),
+        F.substring_index(em, lit("ex"), lit(-1)).alias("after_ex"),
+        F.translate(em, lit("aeiou"), lit("AE")).alias("translate"),
+        em.like("c1%").alias("like_prefix"),
+        em.like("%.com").alias("like_suffix"),
+        em.like("%ample%").alias("like_infix"),
+        em.like("c%@%com").alias("like_chain"),
+        em.like("c_2%").alias("like_regex"),
+        em.like("c12@example.com").alias("like_exact"),
+        em.startswith("c9").alias("startswith"),
+        em.endswith("7@example.com").alias("endswith"),
+        em.contains("55").alias("contains"),
+        case.alias("case_when"),
+        d.Col(ir.Negative(bound(i_sk, "c_customer_sk"))).alias("negative"),
+        F.hash(sk, st).alias("hash"), F.murmur3_hash(em).alias("murmur3"),
+        F.xxhash64(em, by).alias("xxhash64"),
+        F.coalesce(em, st).alias("coalesce"),
+        F.nullif(st, lit("TX")).alias("nullif"),
+        F.if_(sk % 3 == 0, em, st).alias("if"))
+
+
+def _sweep_item(df, d):
+    """Math, nulls, casts between strings, numbers and dates, split and
+    the host parses over item: i_item_sk, i_category (16 wide), i_brand
+    ('brand#NNN') and i_current_price (0.5–300)."""
+    col, lit, F, ir, T = d.col, d.lit, d.F, d.ir, d.DataType
+    it, pr = col("i_item_sk"), col("i_current_price")
+    cat, br = col("i_category"), col("i_brand")
+    i_it = df.schema.index_of("i_item_sk")
+    i_pr = df.schema.index_of("i_current_price")
+    i_cat = df.schema.index_of("i_category")
+    i_br = df.schema.index_of("i_brand")
+    num = F.substring_index(br, lit("#"), lit(-1))          # '027'
+    ds = F.concat(lit("19"), F.substring(br, lit(-2), lit(2)), lit("-"),
+                  (it % 12 + 1).cast(T.STRING), lit("-"),
+                  (it % 28 + 1).cast(T.STRING))              # '1927-3-5'
+    day = ds.cast(T.DATE32)
+    case = d.Col(ir.CaseWhen(
+        ((ir.BinaryExpr(">", ir.ColumnRef(i_pr, "i_current_price"),
+                        ir.Literal(200.0, T.FLOAT64)),
+          ir.ColumnRef(i_cat, "i_category")),
+         (ir.BinaryExpr(">", ir.ColumnRef(i_pr, "i_current_price"),
+                        ir.Literal(100.0, T.FLOAT64)),
+          ir.Literal("a much longer literal, 32 wide", T.STRING))),
+        ir.ColumnRef(i_br, "i_brand")))
+    return df.select(
+        it, F.abs(pr - 150.0).alias("abs"), F.sqrt(pr - 20.0).alias("sqrt"),
+        F.floor(pr).alias("floor"), F.ceil(pr * -1.0).alias("ceil"),
+        F.round(pr, lit(1)).alias("round"), F.bround(pr).alias("bround"),
+        F.pow(pr, lit(0.5)).alias("u_pow"),
+        F.power(it % 7, lit(2)).alias("u_power"),
+        F.exp(pr / 100.0).alias("u_exp"), F.log(pr - 100.0).alias("u_log"),
+        F.ln(pr).alias("u_ln"),
+        F.isnan(F.sqrt(pr - 150.0)).alias("isnan"),
+        F.nanvl(F.sqrt(pr - 150.0), lit(-1.0)).alias("nanvl"),
+        F.normalize_nan_and_zero((pr - pr) * -1.0).alias("normalize"),
+        F.greatest(pr, lit(100.0)).alias("greatest"),
+        F.least(it % 17, it % 5).alias("least"),
+        F.sin(pr).alias("u_sin"), F.cos(pr).alias("u_cos"),
+        F.tan(pr).alias("u_tan"), F.asin(pr / 300.0).alias("u_asin"),
+        F.acos(pr / 300.0).alias("u_acos"), F.atan(pr).alias("u_atan"),
+        F.sinh(pr / 50.0).alias("u_sinh"), F.cosh(pr / 50.0).alias("u_cosh"),
+        F.tanh(pr / 100.0).alias("u_tanh"), F.log10(pr).alias("u_log10"),
+        F.log2(pr).alias("u_log2"), F.log1p(pr).alias("u_log1p"),
+        F.expm1(pr / 100.0).alias("u_expm1"),
+        F.cbrt(pr - 150.0).alias("u_cbrt"), F.degrees(pr).alias("degrees"),
+        F.radians(pr).alias("radians"), F.rint(pr).alias("rint"),
+        F.signum(pr - 150.0).alias("signum"),
+        F.sign(it % 5 - 2).alias("sign"),
+        F.atan2(pr, it % 11 - 5).alias("u_atan2"),
+        F.hypot(pr, it % 7).alias("u_hypot"), F.pi().alias("pi"),
+        F.e().alias("e"), F.pmod(it, lit(-7)).alias("pmod"),
+        F.pmod(pr, lit(7.5)).alias("pmod_f"),
+        F.factorial(it % 25).alias("factorial"),
+        F.coalesce(F.nullif(it % 3, lit(0)), lit(-1)).alias("coalesce"),
+        F.null_if(F.floor(pr), lit(100)).alias("null_if"),
+        F.if_(pr > 150.0, cat, br).alias("if"),
+        case.alias("case_when"),
+        d.Col(ir.Negative(ir.ColumnRef(i_it, "i_item_sk"))).alias("neg"),
+        d.Col(ir.Negative(ir.ColumnRef(i_pr, "i_current_price")))
+        .alias("neg_f"),
+        num.cast(T.INT32).alias("str_int"),
+        num.cast(T.FLOAT64).alias("str_float"),
+        br.cast(T.INT64).alias("str_bad_int"),
+        (it % 2).cast(T.STRING).cast(T.BOOL).alias("str_bool"),
+        day.alias("str_date"), day.cast(T.STRING).alias("date_str"),
+        day.cast(T.TIMESTAMP_US).alias("date_ts"),
+        F.concat(day.cast(T.STRING), lit(" 10:11:12")).cast(T.TIMESTAMP_US)
+        .cast(T.STRING).alias("ts_str"),
+        F.concat(day.cast(T.STRING), lit(" 23:59:59")).cast(T.TIMESTAMP_US)
+        .cast(T.DATE32).alias("ts_date"),
+        (pr > 100.0).cast(T.STRING).alias("bool_str"),
+        pr.cast(T.STRING).alias("float_str"),
+        pr.cast(T.FLOAT32).cast(T.STRING).alias("f32_str"),
+        it.cast(T.STRING).alias("int_str"),
+        pr.cast(T.STRING).cast(T.FLOAT64).alias("float_round_trip"),
+        F.split(br, lit("#")).getitem(1).alias("split"),
+        F.unix_timestamp(F.concat(ds, lit(" 00:00:00")),
+                         lit("yyyy-MM-dd HH:mm:ss")).alias("unix_str"),
+        F.to_date(ds, lit("yyyy-MM-dd")).alias("to_date_fmt"),
+        F.hash(it, cat).alias("hash"), F.xxhash64(pr, cat).alias("xxhash"))
+
+
+def expression_sweep_dataframe(s, t, table: str = "customer", dsl=None):
+    """A select over ``table`` ('customer' or 'item') after a filter
+    that keeps one row in seven; the two tables' selects together call
+    every scalar function the port registers and every expression node
+    of ``exprs/ir.py`` (string casts, the three LIKE classes, CASE WHEN
+    with string branches of different widths). ``dsl`` is the
+    DataFrame DSL to build it in (``PORT_DSL`` by default)."""
+    d = dsl or PORT_DSL
+    key = {"customer": "c_customer_sk", "item": "i_item_sk"}[table]
+    df = s.read_parquet(t[table]).filter(d.col(key) % 7 == 3)
+    return (_sweep_customer if table == "customer" else _sweep_item)(df, d)
+
+
 # the in-memory query: one partition, a complete agg over the memory scan
 
 def store_quantity_dataframe(s, table):
@@ -481,6 +701,8 @@ QUERIES = [
     Query("q11_union", "union of branches→agg", q11_dataframe, _q11_oracle),
     Query("q12_computed_topk", "project arithmetic→top-k", q12_dataframe,
           _q12_oracle),
+    Query("q14_string_functions", "round-3 string fns→agg", q14_dataframe,
+          _q14_oracle),
     Query("q13_distinct_buyers", "nested aggs through exchange",
           q13_dataframe, _q13_oracle),
 ]

@@ -44,26 +44,30 @@ def _project(exprs: tuple, batch: DeviceBatch, in_schema: Schema,
 
 def _fragment(step):
     """The fragment of an operator whose batch step is ``step(batch,
-    ectx)``: the carry (the row offset of row-numbering expressions,
-    which the port's evaluator does not have) passes through."""
+    ectx)``: each batch gets a fresh common-subexpression memo; the carry
+    (the row offset of row-numbering expressions, which the port's
+    evaluator does not have) passes through."""
     from auron_tpu_torch.ops.fused import KernelFragment
 
     def apply(batch, partition_id, carry):
-        return (step(batch, EvalContext(partition_id=partition_id)),), carry
+        return (step(batch, EvalContext(partition_id=partition_id,
+                                        memo={})),), carry
 
     return KernelFragment(apply=apply)
 
 
 def _stream(op, partition: int, ctx: ExecContext, step):
-    """Run ``step(batch, ectx)`` over the child's batches, timed."""
+    """Run ``step(batch, ectx)`` over the child's batches, timed; each
+    batch gets a fresh common-subexpression memo, which a filter and its
+    projection share."""
     metrics = ctx.metrics_for(op)
     elapsed = metrics.counter("elapsed_compute")
     sync = ctx.device_sync
-    ectx = EvalContext(partition_id=partition)
 
     def stream():
         for batch in op.child.execute(partition, ctx):
             ctx.check_cancelled()
+            ectx = EvalContext(partition_id=partition, memo={})
             with timer(elapsed, sync=sync) as t:
                 out = t.track(step(batch, ectx))
             yield out

@@ -153,13 +153,32 @@ t. q03 (a co-partitioned join on the item, ``i_category IN (...)``, a
    ``sort`` (``float_sum_inexact``; ``acc_kind:smin`` for q06) or
    ``hashtable`` (q08, q09). ``cuda_sum_count.launches`` stays 0.
 
+Scalar expressions and functions through the same Session, run after
+phase t over the same customer and item files:
+
+e. q14 (``it/queries.q14_dataframe``: ``initcap``, ``substring_index``
+   and ``concat_ws`` over the 240,000 items, a filter, ``count(*)`` and
+   ``min`` of a string per title-cased category, a sort) checked against
+   a numpy oracle (titles, counts and least paths identical, in order),
+   timed by its checked run, its host syncs counted, its AggOp held on
+   ``sort`` (``acc_kind:smin``), profiled once at SF1; then the
+   expression sweep (``it/queries.expression_sweep_dataframe``: every
+   scalar function and expression node of the port) over SF10's
+   customer (960,000 rows) and item tables, run on the card and through
+   ``Session(device="cpu")`` over the same files, compared cell by cell
+   (``it.comparator.compare_cells``: exact, but the transcendental
+   columns within ``it.comparator.ULP_BOUND`` units in the last place);
+   each card run timed by its checked run, its syncs counted and
+   profiled once at SF1. ``cuda_sum_count.launches`` stays 0.
+
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
 store_sales in one batch.
 
 Output: progress lines, then a JSON line of the stage's numbers, the
-pipeline, Session, join and string phases and the comparisons, the
+pipeline, Session, join, string and expression phases and the
+comparisons, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device":
 {...}}``.
@@ -2172,6 +2191,99 @@ def phase_strings(dev, pipe: dict, seed: int, root: str,
     return out
 
 
+def q14_oracle(item: dict) -> tuple:
+    """q14 in numpy over the generated item columns, in
+    ``check_session_result``'s form: per title-cased category, the row
+    count and the least ``category/brand`` path."""
+    cats = np.asarray(item["i_category"]).astype(str)
+    paths = np.char.add(np.char.add(cats, "/"),
+                        np.asarray(item["i_brand"], dtype=object).astype(str))
+    titles = np.array([c.title() for c in cats.tolist()])
+    keys = np.unique(titles)
+    n = np.array([(titles == k).sum() for k in keys], np.int64)
+    first = np.array([min(paths[titles == k].tolist()) for k in keys],
+                     dtype=object)
+    return ({"cat_title": keys.astype(object), "n": n, "first_path": first},
+            {})
+
+
+def phase_expressions(dev, pipe: dict, seed: int, root: str,
+                      profile_sf10: bool) -> dict:
+    """e. q14 through the Session over phase p's item file, checked
+    against numpy, timed by its checked run, its syncs counted, its
+    AggOp path held and profiled once at SF1 (at SF10 with
+    ``profile_sf10``); then the expression sweep over customer and item
+    on the card against the same query through ``Session(device=
+    "cpu")``, cell by cell."""
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+    from auron_tpu_torch.it.comparator import compare_cells
+
+    t_phase = time.perf_counter()
+    check(pipe["dim_files"] is not None,
+          "the expression phase reads parquet: pyarrow imports")
+    tables = pipe["dim_files"]
+    prof_tables = tables if profile_sf10 else sf1_data(seed, root)[1]
+    item = pipe["dims"]["item"]
+    items = int(item["i_item_sk"].size)
+    customers = int(pipe["dims"]["customer"]["c_customer_sk"].size)
+    session = Session(device=dev)
+    gagg.cuda_sum_count.launches = 0
+    oracle = q14_oracle(item)
+
+    def verify(t, _s):
+        worst = check_session_result(t, oracle, "q14")
+        check(t["cat_title"].to_pylist() == sorted(oracle[0]["cat_title"]),
+              "q14: rows in cat_title order")
+        return worst
+
+    out = {"q14": run_session_query(
+        "q14", lambda: tq.q14_dataframe(session, tables), verify, items,
+        lambda: tq.q14_dataframe(session, prof_tables), timed=False)}
+    del out["q14"]["table"]
+    decisions = agg_decisions(session, tq.q14_dataframe(session, tables))
+    out["q14"]["agg_decisions"] = decisions
+    check(bool(decisions) and all(
+        (d["backend"], d["reason"]) == ("sort", "acc_kind:smin")
+        for d in decisions), f"q14: its AggOp takes the sort path for its "
+        f"string min: {decisions}")
+
+    cpu = Session(device="cpu")
+    for table, rows in (("customer", customers), ("item", items)):
+        t0 = time.perf_counter()
+        want = tq.expression_sweep_dataframe(cpu, tables, table).collect()
+        cpu_s = time.perf_counter() - t0
+        seen = {}
+
+        def verify(t, _s, want=want, table=table, seen=seen):
+            bad, ulps = compare_cells(want, t)
+            check(not bad, f"sweep over {table}: the card's cells are the "
+                  f"CPU's: {bad[:5]}")
+            check(t.num_rows > 0, f"sweep over {table}: rows")
+            seen.update(ulps)
+            return max(ulps.values(), default=0)
+
+        label = f"sweep_{table}"
+        res = run_session_query(
+            label, lambda tb=table: tq.expression_sweep_dataframe(
+                session, tables, tb), verify, rows,
+            lambda tb=table: tq.expression_sweep_dataframe(
+                session, prof_tables, tb), timed=False)
+        res.update(columns=res["table"].num_columns, cpu_s=cpu_s,
+                   ulps=seen, profile_scale=PIPE_SCALE if profile_sf10
+                   else JOIN_CHECK_SCALE)
+        del res["table"]
+        out[label] = res
+    out["q14"]["profile_scale"] = PIPE_SCALE if profile_sf10 \
+        else JOIN_CHECK_SCALE
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    check(out["cuda_sum_count_launches"] == 0,
+          "no cuda_dense_sum_count launch on the expression path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"expression phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -2199,6 +2311,8 @@ def main() -> int:
                             args.profile_at_sf10)
         strings = phase_strings(dev, pipe, args.seed, root,
                                 args.profile_at_sf10)
+        expressions = phase_expressions(dev, pipe, args.seed, root,
+                                        args.profile_at_sf10)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del pipe
@@ -2225,7 +2339,8 @@ def main() -> int:
                 "cuda_sum_count_launches"],
             "session": session["cuda_sum_count_launches"],
             "joins": joins["cuda_sum_count_launches"],
-            "strings": strings["cuda_sum_count_launches"]},
+            "strings": strings["cuda_sum_count_launches"],
+            "expressions": expressions["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -2244,7 +2359,7 @@ def main() -> int:
     }
     report = {"build_s": build_s, "stages": other["stages"],
               "pipeline": pipeline, "session": session, "joins": joins,
-              "strings": strings,
+              "strings": strings, "expressions": expressions,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

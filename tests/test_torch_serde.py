@@ -13,7 +13,7 @@
   ``IN`` list and string comparisons), the port DataFrame's
   ``task_bytes()`` equals the reference DataFrame's byte for byte;
 - ``InList`` over strings and numbers round-trips to the reference's
-  bytes; ``like`` raises naming ROADMAP item 17;
+  bytes; the nodes of ROADMAP items 17b and 16f raise naming their item;
 - ``DataFrame.partitioning`` equals the reference's after every
   transform that carries, sets or drops it;
 - reference bytes parse in the port and port bytes in the reference;
@@ -124,14 +124,12 @@ def test_schema_round_trip():
 
 
 def test_unported_expressions_raise_naming_the_node():
-    like = rir.Like(rir.ColumnRef(0), "a%")
-    node = tpb.ExprNode.FromString(
-        rserde.expr_to_proto(like).SerializeToString())
-    with pytest.raises(NotImplementedError, match="like.*item 17"):
-        tserde.parse_expr(node)
-    with pytest.raises(NotImplementedError, match="negative"):
-        tserde.parse_expr(tpb.ExprNode(unary=tpb.UnaryE(
-            op="negative", child=tserde.expr_to_proto(tir.ColumnRef(0)))))
+    row_num = tpb.ExprNode(nullary=tpb.NullaryE(kind="row_num"))
+    with pytest.raises(NotImplementedError, match="nullary.*item 17b"):
+        tserde.parse_expr(row_num)
+    with pytest.raises(NotImplementedError, match="get_struct_field.*16f"):
+        tserde.parse_expr(tpb.ExprNode(get_struct_field=tpb.GetStructFieldE(
+            child=tserde.expr_to_proto(tir.ColumnRef(0)))))
     with pytest.raises(NotImplementedError, match="SortOrder"):
         tserde.expr_to_proto(tir.SortOrder(tir.ColumnRef(0)))
 

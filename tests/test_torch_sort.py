@@ -348,6 +348,6 @@ def test_cast_evaluates_as_reference(case):
 def test_cast_to_unported_types_raises():
     tb = batch_from_numpy([(np.arange(4), np.ones(4, bool))], 4, "cpu")
     schema = Schema((Field("x", TDT.INT64),))
-    for dt in (TDT.STRING, TDT.DECIMAL, TDT.DATE32):
-        with pytest.raises(NotImplementedError, match="cast"):
+    for dt in (TDT.DECIMAL,):
+        with pytest.raises(NotImplementedError, match="cast.*16d"):
             teval.evaluate(tir.Cast(tir.ColumnRef(0), dt), tb, schema)
