@@ -1,14 +1,18 @@
-"""pyarrow RecordBatch <-> DeviceBatch conversion, primitive and string
-columns.
+"""pyarrow RecordBatch <-> DeviceBatch conversion: primitive, string and
+decimal columns.
 
 The port of ``auron_tpu.columnar.arrow_bridge`` for fixed-width columns
-with validity (bool, integers, floats, date32 and timestamp[us]) and
-string columns (``string``, ``large_string`` and dictionaries of them).
-A string column's char matrix is built on the host in numpy from
-Arrow's offset and data buffers, as the reference builds it, at the
-width bucket of its longest value or at a width the caller pins.
-Decimal columns (ROADMAP item 16d) and list, map and struct columns
-(16f) raise ``NotImplementedError`` here.
+with validity (bool, integers, floats, date32 and timestamp[us]),
+string columns (``string``, ``large_string`` and dictionaries of them)
+and ``decimal128(p, s)`` columns. A string column's char matrix is
+built on the host in numpy from Arrow's offset and data buffers, as the
+reference builds it, at the width bucket of its longest value or at a
+width the caller pins. A decimal is read straight from Arrow's 16-byte
+little-endian values (one int64 view: even words are the low limb, odd
+words the high one): precision <= 18 as the unscaled int64, precision
+19..38 as a ``Decimal128Column`` of limbs, the same values the
+reference builds row by row through Python's ``decimal``. List, map and
+struct columns (ROADMAP item 16f) raise ``NotImplementedError`` here.
 
 pyarrow is imported inside the functions, never at module level, so
 the port imports and runs where pyarrow is not installed; only the
@@ -29,6 +33,7 @@ import torch
 from auron_tpu_torch import resolve_device
 from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
                                             StringColumn)
+from auron_tpu_torch.columnar.decimal128 import MAX_PRECISION, Decimal128Column
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.ops.base import host_copy, host_readback
 from auron_tpu_torch.utils.shapes import bucket_rows, bucket_string_width
@@ -40,11 +45,8 @@ _NP = {
     DataType.INT64: np.int64, DataType.FLOAT32: np.float32,
     DataType.FLOAT64: np.float64, DataType.DATE32: np.int32,
     DataType.TIMESTAMP_US: np.int64, DataType.NULL: np.bool_,
+    DataType.DECIMAL: np.int64,
 }
-
-
-#: the ROADMAP item that brings a column type the bridge does not carry
-_ITEM_OF = {DataType.DECIMAL: "ROADMAP item 16d"}
 
 
 def _pa_to_dt() -> dict:
@@ -59,8 +61,11 @@ def _pa_to_dt() -> dict:
     }
 
 
-def _dt_to_pa(dt: DataType):
+def _field_to_pa(f: Field):
     import pyarrow as pa
+    dt = f.dtype
+    if dt == DataType.DECIMAL:
+        return pa.decimal128(f.precision, f.scale)
     if dt == DataType.DATE32:
         return pa.date32()
     if dt == DataType.TIMESTAMP_US:
@@ -71,8 +76,8 @@ def _dt_to_pa(dt: DataType):
         return pa.string()
     if dt not in _NP:
         raise NotImplementedError(
-            f"{dt.value} columns: the port carries primitive and string "
-            f"columns only ({_ITEM_OF.get(dt, 'ROADMAP item 16f')})")
+            f"{dt.value} columns: the port carries primitive, string and "
+            "decimal columns only (ROADMAP item 16f)")
     return pa.from_numpy_dtype(_NP[dt])
 
 
@@ -90,18 +95,22 @@ def schema_from_arrow(sch) -> Schema:
             fields.append(Field(f.name, known[t], f.nullable))
         elif pa.types.is_timestamp(t):
             fields.append(Field(f.name, DataType.TIMESTAMP_US, f.nullable))
+        elif pa.types.is_decimal(t):
+            if t.precision > MAX_PRECISION:
+                raise NotImplementedError(
+                    f"decimal precision {t.precision} > 38 not supported")
+            fields.append(Field(f.name, DataType.DECIMAL, f.nullable,
+                                t.precision, t.scale))
         else:
-            item = "ROADMAP item 16d" if pa.types.is_decimal(t) \
-                else "ROADMAP item 16f"
             raise NotImplementedError(
-                f"arrow type {t}: the port carries primitive and string "
-                f"columns only ({item})")
+                f"arrow type {t}: the port carries primitive, string and "
+                "decimal columns only (ROADMAP item 16f)")
     return Schema(tuple(fields))
 
 
 def schema_to_arrow(schema: Schema):
     import pyarrow as pa
-    return pa.schema([pa.field(f.name, _dt_to_pa(f.dtype), f.nullable)
+    return pa.schema([pa.field(f.name, _field_to_pa(f), f.nullable)
                       for f in schema])
 
 
@@ -177,6 +186,34 @@ def _string_to_device(arr, cap: int, width: int | None,
                         _staged(validity, cap, device))
 
 
+def _decimal_limbs(arr) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(hi, lo, validity) of a pyarrow decimal128 array, read from its
+    values buffer as one int64 view (even words the low limb, odd words
+    the high one), honouring the array's offset; null rows hold 0."""
+    import pyarrow as pa
+    if not pa.types.is_decimal128(arr.type):
+        arr = arr.cast(pa.decimal128(arr.type.precision, arr.type.scale))
+    n = len(arr)
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * n, offset=arr.offset * 16)
+    validity = (~np.asarray(arr.is_null()) if arr.null_count
+                else np.ones(n, np.bool_))
+    lo = np.where(validity, words[0::2], 0)
+    hi = np.where(validity, words[1::2], 0)
+    return hi, lo, validity
+
+
+def _decimal_to_device(field: Field, arr, cap: int, device: torch.device):
+    """A decimal column: the unscaled int64 for precision <= 18, the
+    limbs for 19..38."""
+    hi, lo, validity = _decimal_limbs(arr)
+    if field.precision <= 18:
+        return host_to_device(lo, validity, cap, device)
+    return Decimal128Column(_staged(hi, cap, device),
+                            _staged(lo, cap, device),
+                            _staged(validity, cap, device))
+
+
 def _column_to_device(field: Field, arr, cap: int, device: torch.device,
                       string_widths: dict | None = None):
     """One Arrow column → a padded device column; nulls hold 0 (False
@@ -195,8 +232,9 @@ def _column_to_device(field: Field, arr, cap: int, device: torch.device,
     if np_dtype is None:
         raise NotImplementedError(
             f"{field.dtype.value} column {field.name!r}: the port carries "
-            "primitive and string columns only "
-            f"({_ITEM_OF.get(field.dtype, 'ROADMAP item 16f')})")
+            "primitive, string and decimal columns only (ROADMAP item 16f)")
+    if field.dtype == DataType.DECIMAL:
+        return _decimal_to_device(field, arr, cap, device)
     if field.dtype == DataType.NULL:
         return host_to_device(np.zeros(n, np.bool_), np.zeros(n, np.bool_),
                               cap, device)
@@ -232,9 +270,10 @@ def to_device(rb, capacity: int | None = None, device=None,
 
 
 def fetch_numpy(batch: DeviceBatch) -> tuple[list[tuple], int]:
-    """``([(data, validity) or (chars, lens, validity), ...], n)`` of the
-    batch's live rows: one readback of the row count, then ONE packed
-    device → host copy of every column, string columns included."""
+    """``([(data, validity), (chars, lens, validity) or (hi, lo,
+    validity), ...], n)`` of the batch's live rows: one readback of the
+    row count, then ONE packed device → host copy of every column,
+    string and decimal128 columns included."""
     (n,) = host_readback([batch.num_rows])
     parts, layout = [], []
 
@@ -247,12 +286,15 @@ def fetch_numpy(batch: DeviceBatch) -> tuple[list[tuple], int]:
         if isinstance(c, StringColumn):
             add(c.chars)
             add(c.lens)
+        elif isinstance(c, Decimal128Column):
+            add(c.hi)
+            add(c.lo)
         elif isinstance(c, PrimitiveColumn):
             add(c.data)
         else:
             raise NotImplementedError(
-                f"{type(c).__name__}: the port carries primitive and "
-                "string columns only")
+                f"{type(c).__name__}: the port carries primitive, string "
+                "and decimal128 columns only")
         add(c.validity)
     if not parts:
         return [], n
@@ -265,7 +307,8 @@ def fetch_numpy(batch: DeviceBatch) -> tuple[list[tuple], int]:
     out, it = [], iter(arrays)
     for c in batch.columns:
         out.append((next(it), next(it), next(it))
-                   if isinstance(c, StringColumn) else (next(it), next(it)))
+                   if isinstance(c, (StringColumn, Decimal128Column))
+                   else (next(it), next(it)))
     return out, n
 
 
@@ -296,11 +339,33 @@ def _host_string_to_arrow(chars: np.ndarray, lens: np.ndarray,
         int((~validity).sum()))
 
 
+def _host_decimal_to_arrow(field: Field, host: tuple, n: int):
+    """A fetched decimal column (the unscaled int64, or the limbs) → a
+    pyarrow decimal128 array built from one buffer of 16-byte values."""
+    import pyarrow as pa
+    if len(host) == 3:
+        hi, lo, validity = host
+    else:
+        lo, validity = host
+        hi = np.where(lo < 0, -1, 0)
+    words = np.empty(2 * n, np.int64)
+    words[0::2] = np.where(validity, lo, 0)
+    words[1::2] = np.where(validity, hi, 0)
+    nulls = int((~validity).sum())
+    bits = pa.py_buffer(np.packbits(validity, bitorder="little").tobytes()) \
+        if nulls else None
+    return pa.Array.from_buffers(
+        pa.decimal128(field.precision, field.scale), n,
+        [bits, pa.py_buffer(words.tobytes())], nulls)
+
+
 def _host_col_to_arrow(field: Field, host: tuple, n: int):
     """ONE host column → a pyarrow array."""
     import pyarrow as pa
     if field.dtype == DataType.STRING:
         return _host_string_to_arrow(*host, n)
+    if field.dtype == DataType.DECIMAL:
+        return _host_decimal_to_arrow(field, host, n)
     data, validity = host
     if field.dtype == DataType.NULL:
         return pa.nulls(n)
@@ -311,7 +376,7 @@ def _host_col_to_arrow(field: Field, host: tuple, n: int):
     if field.dtype == DataType.TIMESTAMP_US:
         return pa.array(np.where(validity, data, 0), pa.int64(),
                         mask=mask).cast(pa.timestamp("us"))
-    return pa.array(data, _dt_to_pa(field.dtype), mask=mask)
+    return pa.array(data, _field_to_pa(field), mask=mask)
 
 
 def to_arrow(batch: DeviceBatch, schema: Schema):

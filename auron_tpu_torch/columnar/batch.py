@@ -1,4 +1,5 @@
-"""Device-resident columnar batches: primitive and string columns.
+"""Device-resident columnar batches: primitive, string and decimal128
+columns.
 
 The port of ``auron_tpu.columnar.batch``: every column is padded to a
 static ``capacity``; the true row count is a 0-d int32 tensor on the
@@ -7,9 +8,11 @@ and nothing on the hot path waits for the host. Validity is a dense bool
 mask. A string column is a zero-padded byte matrix ``chars[capacity,
 width]`` with a length per row; its width is a bucket
 (``utils.shapes.bucket_string_width``), and columns of different widths
-are padded to the wider one before they are concatenated. List, map and
-struct columns (ROADMAP item 16f) and decimal128 columns (16d) are not
-ported: a column op given one raises ``NotImplementedError``.
+are padded to the wider one before they are concatenated. A decimal of
+precision 19..38 is a ``Decimal128Column`` (``columnar/decimal128.py``):
+two int64 limbs and a validity. List, map and struct columns (ROADMAP
+item 16f) are not ported: a column op given one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Sequence, Union
 
 import numpy as np
 import torch
+
+from auron_tpu_torch.columnar.decimal128 import Decimal128Column
 
 
 @dataclass(frozen=True)
@@ -57,7 +62,7 @@ class StringColumn:
         return StringColumn(self.chars, self.lens, validity)
 
 
-Column = Union[PrimitiveColumn, StringColumn]
+Column = Union[PrimitiveColumn, StringColumn, Decimal128Column]
 
 
 @dataclass(frozen=True)
@@ -91,11 +96,12 @@ class DeviceBatch:
 
 def _require_ported(col) -> None:
     """Raise for the column types the port does not carry yet."""
-    if not isinstance(col, (PrimitiveColumn, StringColumn)):
+    if not isinstance(col, (PrimitiveColumn, StringColumn,
+                            Decimal128Column)):
         raise NotImplementedError(
-            f"{type(col).__name__}: the port carries primitive and string "
-            "columns only (decimal128: ROADMAP item 16d; list, map and "
-            "struct: 16f)")
+            f"{type(col).__name__}: the port carries primitive, string "
+            "and decimal128 columns only (list, map and struct: ROADMAP "
+            "item 16f)")
 
 
 def column_nbytes(col: Column) -> int:
@@ -103,6 +109,8 @@ def column_nbytes(col: Column) -> int:
     _require_ported(col)
     if isinstance(col, StringColumn):
         return col.chars.nbytes + col.lens.nbytes + col.validity.nbytes
+    if isinstance(col, Decimal128Column):
+        return col.hi.nbytes + col.lo.nbytes + col.validity.nbytes
     return col.data.nbytes + col.validity.nbytes
 
 
@@ -128,6 +136,9 @@ def gather_column(col: Column, indices: torch.Tensor,
         return StringColumn(col.chars[indices],
                             torch.where(valid, col.lens[indices], 0),
                             col.validity[indices] & valid)
+    if isinstance(col, Decimal128Column):
+        return Decimal128Column(col.hi[indices], col.lo[indices],
+                                col.validity[indices] & valid)
     return PrimitiveColumn(col.data[indices], col.validity[indices] & valid)
 
 
@@ -190,6 +201,10 @@ def concat_columns(a: Column, b: Column) -> Column:
         return StringColumn(torch.cat([a.chars, b.chars]),
                             torch.cat([a.lens, b.lens]),
                             torch.cat([a.validity, b.validity]))
+    if isinstance(a, Decimal128Column):
+        return Decimal128Column(torch.cat([a.hi, b.hi]),
+                                torch.cat([a.lo, b.lo]),
+                                torch.cat([a.validity, b.validity]))
     return PrimitiveColumn(torch.cat([a.data, b.data]),
                            torch.cat([a.validity, b.validity]))
 
@@ -211,6 +226,8 @@ def resize(batch: DeviceBatch, new_capacity: int) -> DeviceBatch:
         _require_ported(c)
         if isinstance(c, StringColumn):
             return StringColumn(fit(c.chars), fit(c.lens), fit(c.validity))
+        if isinstance(c, Decimal128Column):
+            return Decimal128Column(fit(c.hi), fit(c.lo), fit(c.validity))
         return PrimitiveColumn(fit(c.data), fit(c.validity))
 
     return DeviceBatch(tuple(resize_col(c) for c in batch.columns),
@@ -232,25 +249,37 @@ def batch_from_numpy(columns: Sequence[tuple], num_rows: int,
                      device) -> DeviceBatch:
     """A batch from numpy tuples — the same arrays a test hands to the
     JAX package's ``DeviceBatch``: ``(data, validity)`` for a primitive
-    column, ``(chars, lens, validity)`` for a string column."""
+    column, ``(chars, lens, validity)`` for a string column (its chars
+    two-dimensional) and ``(hi, lo, validity)`` for a decimal128 one."""
     dev = torch.device(device)
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-    cols = tuple(
-        StringColumn(t(c[0], np.uint8), t(c[1], np.int32), t(c[2], np.bool_))
-        if len(c) == 3 else PrimitiveColumn(t(c[0]), t(c[1], np.bool_))
-        for c in columns)
+    def column(c):
+        if len(c) == 2:
+            return PrimitiveColumn(t(c[0]), t(c[1], np.bool_))
+        if np.ndim(c[0]) == 2:
+            return StringColumn(t(c[0], np.uint8), t(c[1], np.int32),
+                                t(c[2], np.bool_))
+        return Decimal128Column(t(c[0], np.int64), t(c[1], np.int64),
+                                t(c[2], np.bool_))
+
+    cols = tuple(column(c) for c in columns)
     return DeviceBatch(cols, torch.tensor(num_rows, dtype=torch.int32,
                                           device=dev))
 
 
 def batch_to_numpy(batch: DeviceBatch) -> tuple[list[tuple], int]:
-    """``([(data, validity) or (chars, lens, validity), ...], num_rows)``
-    on the host."""
-    cols = [(c.chars.cpu().numpy(), c.lens.cpu().numpy(),
-             c.validity.cpu().numpy()) if isinstance(c, StringColumn)
-            else (c.data.cpu().numpy(), c.validity.cpu().numpy())
+    """``([(data, validity), (chars, lens, validity) or (hi, lo,
+    validity), ...], num_rows)`` on the host."""
+    def arrays(c):
+        if isinstance(c, StringColumn):
+            return (c.chars, c.lens, c.validity)
+        if isinstance(c, Decimal128Column):
+            return (c.hi, c.lo, c.validity)
+        return (c.data, c.validity)
+
+    cols = [tuple(a.cpu().numpy() for a in arrays(c))
             for c in batch.columns]
     return cols, int(batch.num_rows)

@@ -8,16 +8,24 @@ comparisons of two strings in byte order, ``IN`` lists, Kleene
 ``CASE WHEN`` (string branches padded to the widest), ``LIKE`` and the
 three string predicates, the scalar functions of ``exprs/functions.py``,
 ``split(...)[i]`` and Spark's (non-ANSI) cast matrix over bool, integer,
-float, date, timestamp and string. Null semantics follow Spark/SQL:
-arithmetic and comparisons propagate null, ``x / 0`` and ``x % 0`` are
-null, ``and``/``or`` are three-valued, and a cast that fails gives null
-(or raises, for an ANSI cast from a string). Decimals (ROADMAP item
-16d), nested columns (16f) and the nodes of item 17b raise
+float, decimal, date, timestamp and string. Null semantics follow
+Spark/SQL: arithmetic and comparisons propagate null, ``x / 0`` and
+``x % 0`` are null, ``and``/``or`` are three-valued, and a cast that
+fails gives null (or raises, for an ANSI cast from a string). Nested
+columns (ROADMAP item 16f) and the nodes of item 17b raise
 ``NotImplementedError`` naming their item.
+
+Decimals follow Spark's types (``decimal_result_type``, with
+``allowPrecisionLoss``): ``+ - *`` and the comparisons run on the
+unscaled int64 while the result stays within 18 digits, else on two
+int64 limbs (``columnar/decimal128.py``); overflow past the declared
+precision nulls the row; ``/`` and any float operand go through
+float64.
 
 Each node becomes a few elementwise tensor ops on the batch's device.
 Four things run on the host, as the reference's ``jax.pure_callback``
-does: the general ``LIKE`` regex, casts to and from strings,
+does: the general ``LIKE`` regex, casts to and from strings (decimals
+included),
 ``split(...)[i]`` and timestamp parsing; each makes one packed readback
 and one upload per batch (``exprs/host.py``). With ``EvalContext.memo``
 set, each distinct subexpression is evaluated once per batch.
@@ -33,9 +41,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from auron_tpu_torch.columnar.batch import (Column, DeviceBatch,
-                                            PrimitiveColumn, StringColumn,
-                                            pad_string_width)
+from auron_tpu_torch.columnar import decimal128 as D
+from auron_tpu_torch.columnar.batch import (Column, Decimal128Column,
+                                            DeviceBatch, PrimitiveColumn,
+                                            StringColumn, pad_string_width)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.host import decode, host_map, np_dtype
@@ -79,7 +88,8 @@ _INT_BITS = {DataType.INT8: 8, DataType.INT16: 16, DataType.INT32: 32,
 
 #: field types ``null_column_for_field`` pads with a primitive column
 _PRIMITIVE_FIELDS = frozenset(_RANK) | {DataType.BOOL, DataType.DATE32,
-                                        DataType.TIMESTAMP_US, DataType.NULL}
+                                        DataType.TIMESTAMP_US, DataType.NULL,
+                                        DataType.DECIMAL}
 
 _COMPARE = {"==": torch.eq, "!=": torch.ne, "<": torch.lt,
             "<=": torch.le, ">": torch.gt, ">=": torch.ge}
@@ -91,6 +101,27 @@ def div_const(x: torch.Tensor, c) -> torch.Tensor:
     """``x / c`` for a constant divisor ``c`` (a number, or a one-element
     tensor): a multiplication by ``1 / c``, as XLA compiles it."""
     return x * (torch.reciprocal(c) if torch.is_tensor(c) else 1.0 / c)
+
+
+def decimal_result_type(op: str, lp: int, ls: int, rp: int,
+                        rs: int) -> tuple[int, int, int]:
+    """Spark's decimal binary result type with the ``allowPrecisionLoss``
+    scale adjustment (``DecimalPrecision.adjustPrecisionScale``):
+    (precision, scale, full_scale), where full_scale is the scale the raw
+    limb computation gives before any precision-loss rescale. One
+    definition for ``infer_dtype`` and the evaluation, so declared
+    schemas and evaluated columns agree."""
+    if op == "*":
+        p, s = lp + rp + 1, ls + rs
+        full_s = ls + rs
+    else:   # + - and the comparisons share add/sub typing
+        s = max(ls, rs)
+        p = max(lp - ls, rp - rs) + s + 1
+        full_s = s
+    if p <= 38:
+        return p, s, full_s
+    min_scale = min(s, 6)
+    return 38, max(38 - (p - s), min_scale), full_s
 
 
 def common_type(a: DataType, b: DataType) -> DataType:
@@ -132,9 +163,6 @@ def _const_column(value, dtype: DataType, capacity: int,
                               device=device),
             torch.full((capacity,), value is not None, dtype=torch.bool,
                        device=device))
-    if dtype == DataType.DECIMAL:
-        raise NotImplementedError(
-            "literal of type decimal (ROADMAP item 16d)")
     tdt = dtype.to_torch()
     if value is None:
         return PrimitiveColumn(
@@ -149,17 +177,23 @@ def null_column_for_field(field: Field, cap: int,
                           device: torch.device) -> Column:
     """An all-null column of ``cap`` rows shaped for ``field``: the
     padding of outer joins (a string is 8 bytes wide, as in the
-    reference). Decimal and nested fields come with those columns."""
+    reference; a decimal of precision > 18 two limbs). Nested fields
+    come with those columns."""
     if field.dtype == DataType.STRING:
         return StringColumn(
             torch.zeros((cap, 8), dtype=torch.uint8, device=device),
             torch.zeros(cap, dtype=torch.int32, device=device),
             torch.zeros(cap, dtype=torch.bool, device=device))
+    if field.dtype == DataType.DECIMAL and field.precision > 18:
+        return Decimal128Column(
+            torch.zeros(cap, dtype=torch.int64, device=device),
+            torch.zeros(cap, dtype=torch.int64, device=device),
+            torch.zeros(cap, dtype=torch.bool, device=device))
     if field.dtype not in _PRIMITIVE_FIELDS:
         raise NotImplementedError(
             f"null column of {field.dtype.value}: the port carries "
-            "primitive and string columns only (decimals: ROADMAP item "
-            "16d, nested types: 16f)")
+            "primitive, string and decimal columns only (nested types: "
+            "ROADMAP item 16f)")
     return PrimitiveColumn(
         torch.zeros(cap, dtype=field.dtype.to_torch(), device=device),
         torch.zeros(cap, dtype=torch.bool, device=device))
@@ -206,6 +240,9 @@ def _evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
                           f.scale)
 
     if isinstance(expr, ir.Literal):
+        if expr.dtype == DataType.DECIMAL and expr.precision > 18:
+            return TypedValue(_wide_literal(expr.value, cap, batch.device),
+                              DataType.DECIMAL, expr.precision, expr.scale)
         return TypedValue(_const_column(expr.value, expr.dtype, cap,
                                         batch.device),
                           expr.dtype, expr.precision, expr.scale)
@@ -230,6 +267,10 @@ def _evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
     if isinstance(expr, ir.Negative):
         # two's complement: -INT64_MIN wraps to itself, as in Java
         v = evaluate(expr.child, batch, schema, ctx)
+        if isinstance(v.col, Decimal128Column):
+            return TypedValue(Decimal128Column(*D.neg128(v.col.hi, v.col.lo),
+                                               v.validity),
+                              v.dtype, v.precision, v.scale)
         return TypedValue(PrimitiveColumn(-v.data, v.validity),
                           v.dtype, v.precision, v.scale)
 
@@ -265,6 +306,17 @@ def _evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
     raise NotImplementedError(f"expression {type(expr).__name__}")
 
 
+def _wide_literal(value, cap: int, device) -> Decimal128Column:
+    """A decimal(p > 18) literal (its unscaled int) broadcast to ``cap``
+    rows of limbs; None is an all-null column."""
+    hi, lo = D.int_limbs(0 if value is None else int(value))
+    return Decimal128Column(
+        torch.full((cap,), hi, dtype=torch.int64, device=device),
+        torch.full((cap,), lo, dtype=torch.int64, device=device),
+        torch.full((cap,), value is not None, dtype=torch.bool,
+                   device=device))
+
+
 def _is_split(e: ir.Expr) -> bool:
     return isinstance(e, ir.ScalarFunction) and e.name == "split"
 
@@ -279,11 +331,13 @@ def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
     if isinstance(expr, ir.BinaryExpr):
         if expr.op in ("==", "!=", "<", "<=", ">", ">=", "and", "or"):
             return DataType.BOOL, 0, 0
-        lt = infer_dtype(expr.left, schema)[0]
-        rt = infer_dtype(expr.right, schema)[0]
+        lt, lp, ls = infer_dtype(expr.left, schema)
+        rt, rp, rs = infer_dtype(expr.right, schema)
         if lt == DataType.DECIMAL and rt == DataType.DECIMAL:
-            raise NotImplementedError(
-                "infer_dtype for decimal arithmetic (ROADMAP item 16d)")
+            if expr.op == "/":
+                return DataType.FLOAT64, 0, 0
+            p, s, _fs = decimal_result_type(expr.op, lp, ls, rp, rs)
+            return DataType.DECIMAL, p, s
         return common_type(lt, rt), 0, 0
     if isinstance(expr, (ir.Not, ir.IsNull, ir.IsNotNull, ir.InList,
                          ir.Like, ir.StringStartsWith, ir.StringEndsWith,
@@ -350,9 +404,7 @@ def _eval_binary(expr: ir.BinaryExpr, batch: DeviceBatch, schema: Schema,
         return _eval_string_binary(op, l, r)
 
     if DataType.DECIMAL in (l.dtype, r.dtype):
-        raise NotImplementedError(
-            f"binary {op} on {l.dtype.value} and {r.dtype.value} (ROADMAP "
-            "item 16d)")
+        return _eval_decimal_binary(op, l, r)
 
     target = common_type(l.dtype, r.dtype)
     l = _numeric_promote(l, target)
@@ -416,6 +468,147 @@ def _eval_string_binary(op: str, l: TypedValue,
                       DataType.BOOL)
 
 
+def _eval_decimal_binary(op: str, l: TypedValue,
+                         r: TypedValue) -> TypedValue:
+    """Decimal arithmetic and comparisons. An integer operand is a
+    decimal(18, 0); a float operand, or ``/``, sends both sides through
+    float64; a result within 18 digits stays on the unscaled int64, any
+    other on the limbs (``_eval_decimal128_binary``)."""
+    if l.dtype != DataType.DECIMAL and not l.dtype.is_floating:
+        l = TypedValue(PrimitiveColumn(l.data.to(torch.int64), l.validity),
+                       DataType.DECIMAL, 18, 0)
+    if r.dtype != DataType.DECIMAL and not r.dtype.is_floating:
+        r = TypedValue(PrimitiveColumn(r.data.to(torch.int64), r.validity),
+                       DataType.DECIMAL, 18, 0)
+    if l.dtype.is_floating or r.dtype.is_floating or op == "/":
+        return _eval_binary_simple(op, _decimal_to_f64(l),
+                                   _decimal_to_f64(r))
+    s = max(l.scale, r.scale)
+    rp, rs, full_s = decimal_result_type(op, l.precision, l.scale,
+                                         r.precision, r.scale)
+    if isinstance(l.col, Decimal128Column) or \
+            isinstance(r.col, Decimal128Column) or rp > 18 or full_s > rs:
+        return _eval_decimal128_binary(op, l, r, rp, rs, full_s)
+    ld = l.data * (10 ** (s - l.scale))
+    rd = r.data * (10 ** (s - r.scale))
+    validity = l.validity & r.validity
+    if op in _COMPARE:
+        return TypedValue(PrimitiveColumn(_COMPARE[op](ld, rd), validity),
+                          DataType.BOOL)
+    if op == "+":
+        return TypedValue(PrimitiveColumn(ld + rd, validity),
+                          DataType.DECIMAL, rp, s)
+    if op == "-":
+        return TypedValue(PrimitiveColumn(ld - rd, validity),
+                          DataType.DECIMAL, rp, s)
+    if op == "*":
+        return TypedValue(PrimitiveColumn(l.data * r.data, validity),
+                          DataType.DECIMAL, rp, l.scale + r.scale)
+    raise NotImplementedError(f"decimal op {op}")
+
+
+def _limbs_of(v: TypedValue):
+    """(hi, lo) limbs of a decimal of either representation."""
+    if isinstance(v.col, Decimal128Column):
+        return v.col.hi, v.col.lo
+    return D.from_int64(v.data.to(torch.int64))
+
+
+def _mk_decimal(hi, lo, validity, precision: int,
+                scale: int) -> TypedValue:
+    """Limb results in the narrowest faithful column: the low limb for
+    precision <= 18 (|x| < 10^18 always fits it), else the limbs."""
+    if precision <= 18:
+        return TypedValue(PrimitiveColumn(lo, validity), DataType.DECIMAL,
+                          precision, scale)
+    return TypedValue(Decimal128Column(hi, lo, validity), DataType.DECIMAL,
+                      precision, scale)
+
+
+def _eval_decimal128_binary(op: str, l: TypedValue, r: TypedValue,
+                            rp: int, rs: int, full_s: int) -> TypedValue:
+    """Decimal arithmetic and comparisons on the limbs. Overflow past the
+    declared precision nulls the row; where ``adjustPrecisionScale``
+    cut the scale (full_s > rs), the raw result rescales HALF_UP.
+
+    A rescale by 10^ds can push a 38-digit value past 2^127 and wrap, so
+    each is guarded by ``fits_precision(38 - ds)`` first: for arithmetic
+    an unsafe rescale means the result overflows (null); for a
+    comparison the unsafe side's sign decides the order."""
+    s = max(l.scale, r.scale)
+    lh, ll_ = _limbs_of(l)
+    rh, rl = _limbs_of(r)
+    validity = l.validity & r.validity
+
+    def rescale_safe(h, lo, ds):
+        if ds == 0:
+            return h, lo, torch.ones_like(validity)
+        ok = D.fits_precision(h, lo, 38 - ds)
+        h2, l2 = D.mul_pow10(h, lo, ds)
+        return h2, l2, ok
+
+    if op in _COMPARE:
+        ah, al, oka = rescale_safe(lh, ll_, s - l.scale)
+        bh, bl, okb = rescale_safe(rh, rl, s - r.scale)
+        lt, eq = D.cmp128(ah, al, bh, bl)
+        # at most one side (the smaller-scale one) can be unsafe, and its
+        # magnitude at the common scale is >= 10^38 while the other's is
+        # below: the unsafe side dominates, and its sign decides
+        a_unsafe, b_unsafe = ~oka, ~okb
+        lt = torch.where(a_unsafe, lh < 0, torch.where(b_unsafe, rh >= 0,
+                                                        lt))
+        eq = eq & ~(a_unsafe | b_unsafe)
+        out = {"==": eq, "!=": ~eq, "<": lt, "<=": lt | eq,
+               ">": ~(lt | eq), ">=": ~lt}[op]
+        return TypedValue(PrimitiveColumn(out, validity), DataType.BOOL)
+    if op in ("+", "-"):
+        ah, al, oka = rescale_safe(lh, ll_, s - l.scale)
+        bh, bl, okb = rescale_safe(rh, rl, s - r.scale)
+        if op == "+":
+            oh, ol = D.add128(ah, al, bh, bl)
+            bsign = bh < 0
+        else:
+            oh, ol = D.sub128(ah, al, bh, bl)
+            bsign = (bh >= 0) & ~((bh == 0) & (bl == 0))
+        # 128-bit wrap: same-sign operands whose result flips sign
+        # overflowed 2^127 (a wrapped value could pass the precision
+        # check as a plausible wrong value)
+        asign = ah < 0
+        no_wrap = ~((asign == bsign) & ((oh < 0) != asign))
+        ok = oka & okb & no_wrap
+    elif op == "*":
+        oh, ol = D.mul128(lh, ll_, rh, rl)
+        # a raw product past 2^127 wraps silently in the low-128
+        # multiply: a float magnitude check at the representable bound
+        # (2^127 ~ 1.70e38, with a margin for float error) nulls it, even
+        # where the precision-loss rescale would have brought it back
+        mag = torch.abs(D.to_float64(lh, ll_) * D.to_float64(rh, rl))
+        ok = mag < 1.6e38
+    else:
+        raise NotImplementedError(f"decimal128 op {op}")
+    if full_s > rs:
+        # the precision-loss rescale (adjustPrecisionScale, HALF_UP)
+        oh, ol = D.div_pow10_half_up(oh, ol, full_s - rs)
+    ok = ok & D.fits_precision(oh, ol, rp)
+    return _mk_decimal(oh, ol, validity & ok, rp, rs)
+
+
+def _decimal_to_f64(v: TypedValue) -> TypedValue:
+    """A decimal (either representation) or a number as float64; the
+    scale divides as a reciprocal multiply (``div_const``)."""
+    if isinstance(v.col, Decimal128Column):
+        f = div_const(D.to_float64(v.col.hi, v.col.lo), 10.0 ** v.scale)
+        return TypedValue(PrimitiveColumn(f, v.validity), DataType.FLOAT64)
+    if v.dtype == DataType.DECIMAL:
+        return TypedValue(PrimitiveColumn(
+            div_const(v.data.to(torch.float64), 10.0 ** v.scale),
+            v.validity), DataType.FLOAT64)
+    if v.dtype != DataType.FLOAT64:
+        return TypedValue(PrimitiveColumn(v.data.to(torch.float64),
+                                          v.validity), DataType.FLOAT64)
+    return v
+
+
 def _eval_binary_simple(op: str, l: TypedValue,
                         r: TypedValue) -> TypedValue:
     """Arithmetic or comparison on operands already of one float type
@@ -435,6 +628,9 @@ def select_column(take: torch.Tensor, a: Column, b: Column,
                   validity: torch.Tensor) -> Column:
     """Row-wise ``a`` where ``take`` else ``b``, with ``validity``;
     strings are padded to the wider of the two first."""
+    if isinstance(a, Decimal128Column):
+        return Decimal128Column(torch.where(take, a.hi, b.hi),
+                                torch.where(take, a.lo, b.lo), validity)
     if isinstance(a, StringColumn):
         w = max(a.width, b.width)
         a, b = pad_string_width(a, w), pad_string_width(b, w)
@@ -457,6 +653,9 @@ def _eval_case(expr: ir.CaseWhen, batch: DeviceBatch, schema: Schema,
         if isinstance(t0.col, StringColumn):
             col = StringColumn(torch.zeros_like(t0.col.chars),
                                torch.zeros_like(t0.col.lens), none)
+        elif isinstance(t0.col, Decimal128Column):
+            col = Decimal128Column(torch.zeros_like(t0.col.hi),
+                                   torch.zeros_like(t0.col.lo), none)
         else:
             col = PrimitiveColumn(torch.zeros_like(t0.data), none)
         otherwise = TypedValue(col, t0.dtype, t0.precision, t0.scale)
@@ -572,22 +771,28 @@ def cast_value(v: TypedValue, dtype: DataType, precision: int = 0,
     null-on-failure mode (Spark non-ANSI / TryCast); ``safe=False`` raises
     on an unparseable string (ANSI). ``num_rows`` bounds the rows a host
     cast (from or to a string) reads; every row when it is None."""
-    if v.dtype == dtype and dtype != DataType.DECIMAL:
+    if v.dtype == dtype and (dtype != DataType.DECIMAL
+                             or (v.scale == scale
+                                 and v.precision <= precision)):
         return v
-    if DataType.DECIMAL in (v.dtype, dtype):
-        raise NotImplementedError(
-            f"cast {v.dtype.value} -> {dtype.value} (decimals: ROADMAP "
-            "item 16d)")
     if num_rows is None:
         num_rows = _all_rows(v)
     validity = v.validity
 
     if isinstance(v.col, StringColumn):
-        return _cast_from_string(v, dtype, safe, num_rows)
+        return _cast_from_string(v, dtype, precision, scale, safe, num_rows)
+    if isinstance(v.col, Decimal128Column) or (
+            v.dtype == DataType.DECIMAL and dtype == DataType.DECIMAL
+            and precision > 18):
+        return _cast_decimal128(v, dtype, precision, scale, num_rows)
     if dtype == DataType.STRING:
         return _cast_to_string(v, num_rows)
 
     d = v.data
+    if v.dtype == DataType.DECIMAL:
+        return _cast_from_decimal(v, dtype, precision, scale)
+    if dtype == DataType.DECIMAL:
+        return _cast_to_decimal(v, precision, scale)
     if dtype == DataType.BOOL:
         return TypedValue(PrimitiveColumn(d != 0, validity), DataType.BOOL)
 
@@ -635,6 +840,140 @@ def cast_value(v: TypedValue, dtype: DataType, precision: int = 0,
     raise NotImplementedError(f"cast {v.dtype.value} -> {dtype.value}")
 
 
+def _cast_from_decimal(v: TypedValue, dtype: DataType, precision: int,
+                       scale: int) -> TypedValue:
+    """A decimal(p <= 18) to a decimal(p <= 18) (HALF_UP rescale,
+    overflow → null), to an integer (truncated, narrowing wraps) or, via
+    float64, to anything else."""
+    d, validity = v.data, v.validity
+    if dtype == DataType.DECIMAL:
+        ds = scale - v.scale
+        limit = 10 ** min(precision, 18)
+        if ds >= 0:
+            # the overflow check comes BEFORE the multiply, which would
+            # otherwise wrap past the bound
+            pre_limit = limit // (10 ** ds) if ds <= 18 else 0
+            ok = torch.abs(d) < max(pre_limit, 1)
+            unscaled = torch.where(ok, d, 0) * (10 ** min(ds, 18))
+        else:
+            div = 10 ** (-ds)
+            q_abs = (torch.abs(d) + div // 2) // div   # HALF_UP
+            unscaled = torch.where(d >= 0, q_abs, -q_abs)
+            ok = torch.abs(unscaled) < limit
+        return TypedValue(PrimitiveColumn(torch.where(ok, unscaled, 0),
+                                          validity & ok),
+                          DataType.DECIMAL, precision, scale)
+    if dtype.is_integer:
+        div = 10 ** v.scale
+        q = torch.where(d >= 0, d // div, -((-d) // div))
+        return TypedValue(PrimitiveColumn(q.to(dtype.to_torch()), validity),
+                          dtype)
+    f = div_const(d.to(torch.float64), 10.0 ** v.scale)
+    return cast_value(TypedValue(PrimitiveColumn(f, validity),
+                                 DataType.FLOAT64), dtype, precision, scale)
+
+
+def _cast_to_decimal(v: TypedValue, precision: int,
+                     scale: int) -> TypedValue:
+    """A bool, integer or float to a decimal: floats round half to even
+    at the scale (``torch.round``, as ``jnp.round``), integers scale up
+    exactly; past the precision the row is null. Precision > 18 builds
+    limbs."""
+    d, validity = v.data, v.validity
+    if v.dtype == DataType.BOOL:
+        d = d.to(torch.int32)
+    if v.dtype.is_floating:
+        unscaled = torch.round(d.to(torch.float64) * (10.0 ** scale))
+        if precision > 18:
+            # the limbs of the float magnitude (a double carries 53 bits;
+            # Spark's BigDecimal(double) approximates the same way)
+            mag = torch.abs(unscaled)
+            ok = mag < float(10 ** precision)
+            magc = torch.where(ok, mag, 0.0)
+            hi_f = torch.floor(magc / (2.0 ** 64))
+            lo_f = magc - hi_f * (2.0 ** 64)
+            hi = hi_f.to(torch.int64)
+            lo = torch.where(lo_f >= 2.0 ** 63,
+                             (lo_f - 2.0 ** 64).to(torch.int64),
+                             lo_f.to(torch.int64))
+            nh, nl = D.neg128(hi, lo)
+            neg = d < 0
+            return TypedValue(Decimal128Column(torch.where(neg, nh, hi),
+                                               torch.where(neg, nl, lo),
+                                               validity & ok),
+                              DataType.DECIMAL, precision, scale)
+        ok = torch.abs(unscaled) < float(10 ** min(precision, 18))
+        return TypedValue(PrimitiveColumn(
+            torch.where(ok, unscaled, 0.0).to(torch.int64), validity & ok),
+            DataType.DECIMAL, precision, scale)
+    if precision > 18:
+        hi, lo = D.mul_pow10(*D.from_int64(d.to(torch.int64)), scale)
+        ok = D.fits_precision(hi, lo, precision)
+        return TypedValue(Decimal128Column(hi, lo, validity & ok),
+                          DataType.DECIMAL, precision, scale)
+    unscaled = d.to(torch.int64) * (10 ** scale)
+    ok = torch.abs(unscaled) < (10 ** min(precision, 18))
+    return TypedValue(PrimitiveColumn(torch.where(ok, unscaled, 0),
+                                      validity & ok),
+                      DataType.DECIMAL, precision, scale)
+
+
+def _cast_decimal128(v: TypedValue, dtype: DataType, precision: int,
+                     scale: int, num_rows: torch.Tensor) -> TypedValue:
+    """The casts that touch the limbs: rescales between wide and narrow
+    decimals (HALF_UP, overflow → null), to float, to integers (truncated,
+    null outside int64) and to string on the host."""
+    validity = v.validity
+    hi, lo = _limbs_of(v)
+    if dtype == DataType.DECIMAL:
+        ds = scale - v.scale
+        if ds >= 0:
+            hi2, lo2 = D.mul_pow10(hi, lo, ds)
+        else:
+            hi2, lo2 = D.div_pow10_half_up(hi, lo, -ds)
+        ok = D.fits_precision(hi2, lo2, precision)
+        return _mk_decimal(hi2, lo2, validity & ok, precision, scale)
+    if dtype.is_floating:
+        f = div_const(D.to_float64(hi, lo), 10.0 ** v.scale)
+        return cast_value(TypedValue(PrimitiveColumn(f, validity),
+                                     DataType.FLOAT64), dtype)
+    if dtype.is_integer:
+        qh, ql = D.div_pow10_trunc(hi, lo, v.scale)
+        v64, fits = D.to_int64(qh, ql)
+        return TypedValue(PrimitiveColumn(v64.to(dtype.to_torch()),
+                                          validity & fits), dtype)
+    if dtype == DataType.STRING:
+        return _wide_decimal_to_string(v, hi, lo, num_rows)
+    raise NotImplementedError(f"decimal128 cast to {dtype.value}")
+
+
+def _wide_decimal_to_string(v: TypedValue, hi, lo,
+                            num_rows: torch.Tensor) -> TypedValue:
+    """A decimal(p > 18) as plain digits (never scientific), 48 bytes
+    wide, on the host."""
+    import decimal
+    cap, width, scale = v.validity.shape[0], 48, v.scale
+
+    def host_fmt(n, hi_np, lo_np, valid_np):
+        chars = np.zeros((cap, width), np.uint8)
+        lens = np.zeros(cap, np.int32)
+        rows = np.flatnonzero(valid_np[:n])
+        ints = D.ints_from_limbs(hi_np[rows], lo_np[rows], valid_np[rows])
+        with decimal.localcontext() as dctx:
+            dctx.prec = 60
+            for i, x in zip(rows, ints):
+                b = format(decimal.Decimal(x).scaleb(-scale),
+                           "f").encode()[:width]
+                chars[i, :len(b)] = np.frombuffer(b, np.uint8)
+                lens[i] = len(b)
+        return chars, lens
+
+    chars, lens = host_map(host_fmt, [hi, lo, v.validity], num_rows,
+                           [(np.uint8, (width,)), (np.int32, ())],
+                           v.validity.device)
+    return TypedValue(StringColumn(chars, lens, v.validity), DataType.STRING)
+
+
 def format_float(x, is_f32: bool) -> str:
     """Java's Float/Double.toString as the reference formats it."""
     f = float(x)
@@ -674,8 +1013,11 @@ def _format_timestamp(x) -> str:
     return s
 
 
-def _to_string_format(dtype: DataType):
+def _to_string_format(dtype: DataType, scale: int):
     """(formatter of one value, output width) of a cast to string."""
+    if dtype == DataType.DECIMAL:
+        import decimal
+        return (lambda x: str(decimal.Decimal(int(x)).scaleb(-scale))), 24
     if dtype == DataType.BOOL:
         return (lambda x: str(bool(x)).lower()), 8
     if dtype.is_integer:
@@ -692,8 +1034,9 @@ def _to_string_format(dtype: DataType):
 
 
 def _cast_to_string(v: TypedValue, num_rows: torch.Tensor) -> TypedValue:
-    """Bool, integer, float, date or timestamp → string on the host."""
-    fmt, width = _to_string_format(v.dtype)
+    """Bool, integer, decimal(p <= 18), float, date or timestamp →
+    string on the host."""
+    fmt, width = _to_string_format(v.dtype, v.scale)
     cap = v.validity.shape[0]
 
     def host_fmt(n, data_np, valid_np):
@@ -781,8 +1124,30 @@ def _parse_float(s: str):
         return None
 
 
-def _from_string_parser(dtype: DataType):
+def _decimal_parser(precision: int, scale: int):
+    """Spark's ``Decimal.changePrecision``: HALF_UP at the scale
+    (``cast('1.005' as decimal(10,2))`` is 1.01), null past the
+    precision or on a string that is not a number (``'Infinity'``
+    parses as a Decimal but has no integer value)."""
+    from decimal import ROUND_HALF_UP, Decimal, InvalidOperation
+
+    def parse(s):
+        try:
+            r = int(Decimal(s.strip()).scaleb(scale)
+                    .to_integral_value(rounding=ROUND_HALF_UP))
+        except (InvalidOperation, ValueError, OverflowError):
+            return None
+        if precision and abs(r) >= 10 ** precision:
+            return None
+        return r
+
+    return parse
+
+
+def _from_string_parser(dtype: DataType, precision: int, scale: int):
     """(parser of one string, numpy result type) of a cast from string."""
+    if dtype == DataType.DECIMAL:
+        return _decimal_parser(precision, scale), np.int64
     if dtype == DataType.BOOL:
         return (lambda s: _BOOL_WORDS.get(s.strip().lower())), np.bool_
     if dtype == DataType.DATE32:
@@ -796,14 +1161,17 @@ def _from_string_parser(dtype: DataType):
     raise NotImplementedError(f"cast string -> {dtype.value}")
 
 
-def _cast_from_string(v: TypedValue, dtype: DataType, safe: bool,
+def _cast_from_string(v: TypedValue, dtype: DataType, precision: int,
+                      scale: int, safe: bool,
                       num_rows: torch.Tensor) -> TypedValue:
-    """String → bool, integer, float, date or timestamp, parsed on the
-    host; an invalid string gives null when ``safe`` (TryCast, non-ANSI)
-    and raises when not (ANSI)."""
+    """String → bool, integer, float, decimal, date or timestamp, parsed
+    on the host; an invalid string gives null when ``safe`` (TryCast,
+    non-ANSI) and raises when not (ANSI). A decimal parses into int64,
+    as in the reference, so a value past the int64 range is null even
+    at precision > 18 (whose column is then the limbs of that int64)."""
     col: StringColumn = v.col
     cap = col.capacity
-    parse, np_t = _from_string_parser(dtype)
+    parse, np_t = _from_string_parser(dtype, precision, scale)
 
     def host_parse(n, chars_np, lens_np, valid_np):
         data = np.zeros(cap, np_t)
@@ -830,4 +1198,9 @@ def _cast_from_string(v: TypedValue, dtype: DataType, safe: bool,
     data, ok = host_map(host_parse, [col.chars, col.lens, v.validity],
                         num_rows, [(np_t, ()), (np.bool_, ())],
                         col.chars.device)
-    return TypedValue(PrimitiveColumn(data, v.validity & ok), dtype)
+    if dtype == DataType.DECIMAL and precision > 18:
+        return TypedValue(Decimal128Column(*D.from_int64(data),
+                                           v.validity & ok),
+                          dtype, precision, scale)
+    return TypedValue(PrimitiveColumn(data, v.validity & ok), dtype,
+                      precision, scale)

@@ -16,7 +16,9 @@ import math
 
 import torch
 
-from auron_tpu_torch.columnar.batch import PrimitiveColumn, StringColumn
+from auron_tpu_torch.columnar import decimal128 as D
+from auron_tpu_torch.columnar.batch import (Decimal128Column, PrimitiveColumn,
+                                            StringColumn)
 from auron_tpu_torch.columnar.schema import DataType, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import (US_PER_DAY, TypedValue, cast_value,
@@ -223,6 +225,10 @@ def float_to_int64(x):
 @register("abs")
 def _abs(args, expr, batch, schema, ctx):
     v = args[0]
+    if isinstance(v.col, Decimal128Column):
+        return TypedValue(Decimal128Column(*D.abs128(v.col.hi, v.col.lo),
+                                           v.validity),
+                          v.dtype, v.precision, v.scale)
     return TypedValue(PrimitiveColumn(torch.abs(v.data), v.validity),
                       v.dtype, v.precision, v.scale)
 
@@ -277,32 +283,79 @@ def _round_digits(expr):
     return None if a.value is None else int(a.value)
 
 
-def _rounded(args, expr, fn) -> TypedValue:
+def _round_decimal(v: TypedValue, digits: int,
+                   half_even: bool) -> TypedValue:
+    """A decimal rounded to ``digits`` places: its unscaled value divided
+    by 10^(scale - digits), HALF_UP or HALF_EVEN, at scale ``digits``
+    and the input's precision; fewer places than ``digits`` stay as
+    they are."""
+    shift = v.scale - digits
+    if shift <= 0:
+        return v
+    if not isinstance(v.col, Decimal128Column) and not half_even:
+        p = 10 ** shift
+        d = v.data
+        rounded = torch.sign(d) * ((torch.abs(d) + p // 2) // p)
+        return TypedValue(PrimitiveColumn(rounded, v.validity),
+                          DataType.DECIMAL, v.precision, digits)
+    h, l = (v.col.hi, v.col.lo) if isinstance(v.col, Decimal128Column)         else D.from_int64(v.data)
+    if not half_even:
+        qh, ql = D.div_pow10_half_up(h, l, shift)
+    else:
+        # |q| = |v| // 10^shift; the remainder against half of 10^shift
+        # decides, and a tie goes to the even quotient
+        ah, al = D.abs128(h, l)
+        qh, ql = D.div_pow10_trunc(ah, al, shift)
+        rh, rl = D.sub128(ah, al, *D.mul_pow10(qh, ql, shift))
+        th, tl = D.int_limbs(5 * 10 ** (shift - 1))
+        lt, eq = D.cmp128(rh, rl, th, tl)
+        up = (~lt & ~eq) | (eq & ((ql & 1) == 1))
+        qh, ql = D.add128(qh, ql, torch.zeros_like(qh), up.to(torch.int64))
+        nh, nl = D.neg128(qh, ql)
+        neg = h < 0
+        qh, ql = torch.where(neg, nh, qh), torch.where(neg, nl, ql)
+    if isinstance(v.col, Decimal128Column):
+        return TypedValue(Decimal128Column(qh, ql, v.validity),
+                          DataType.DECIMAL, v.precision, digits)
+    return TypedValue(PrimitiveColumn(ql, v.validity), DataType.DECIMAL,
+                      v.precision, digits)
+
+
+def _rounded_type(expr: ir.ScalarFunction, schema: Schema):
+    """The argument's type; a decimal rounded to fewer places than its
+    scale takes ``digits`` as its scale, as ``_round_decimal`` gives."""
+    dt, p, s = infer_dtype(expr.args[0], schema)
+    digits = _round_digits(expr)
+    if dt == DataType.DECIMAL and digits is not None and digits < s:
+        return dt, p, digits
+    return dt, p, s
+
+
+def _rounded(args, expr, fn, half_even: bool) -> TypedValue:
     v = args[0]
     digits = _round_digits(expr)
     if digits is None:
         return TypedValue(v.col.with_validity(torch.zeros_like(v.validity)),
                           v.dtype, v.precision, v.scale)
     if v.dtype == DataType.DECIMAL:
-        raise NotImplementedError(
-            f"{expr.name} of a decimal (ROADMAP item 16d)")
+        return _round_decimal(v, digits, half_even)
     if v.dtype.is_integer:
         return v
     return prim(fn(v.data, digits), v.validity, v.dtype)
 
 
-@register("round")
+@register("round", _rounded_type)
 def _round(args, expr, batch, schema, ctx):
     """Spark round: HALF_UP."""
-    return _rounded(args, expr, _round_half_up)
+    return _rounded(args, expr, _round_half_up, half_even=False)
 
 
-@register("bround")
+@register("bround", _rounded_type)
 def _bround(args, expr, batch, schema, ctx):
     """Spark bround: HALF_EVEN (banker's rounding; ``torch.round`` rounds
     half to even)."""
     return _rounded(args, expr, lambda x, digits: div_const(
-        torch.round(x * 10.0 ** digits), 10.0 ** digits))
+        torch.round(x * 10.0 ** digits), 10.0 ** digits), half_even=True)
 
 
 def _f64_pair(args):

@@ -46,15 +46,20 @@ store keeps the chars, lengths and validity. A batch narrower than the
 store is zero-padded up to it; a wider batch widens the store first
 (``widen_string_store``): zero char words are spliced into the
 word-major matrix at the end of the column's segment, which changes no
-stored key's equality, and no slot moves. Decimal128 keys come with
-ROADMAP item 16d.
+stored key's equality, and no slot moves.
+
+**Decimal keys.** A decimal of precision <= 18 is a primitive int64 key;
+a wider one (``("dec",)``) has three words, its validity, high limb and
+low limb (zeroed on null rows), and its store keeps both limbs and the
+validity.
 """
 
 from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.columnar.batch import PrimitiveColumn, StringColumn
+from auron_tpu_torch.columnar.batch import (Decimal128Column, PrimitiveColumn,
+                                            StringColumn)
 from auron_tpu_torch.ops.hashing import canonicalize_float
 from auron_tpu_torch.ops.strings import le_words
 from auron_tpu_torch.utils.float_order import scatter_min_max
@@ -103,26 +108,30 @@ def dtype_name(dt: torch.dtype) -> str:
 
 def key_meta(cols) -> tuple:
     """Static per-column codec descriptor, enough to rebuild an empty
-    store: ``("prim", dtype)`` or ``("str", width)``. Raises
-    NotImplementedError for columns without a word encoding in the
-    port."""
+    store: ``("prim", dtype)``, ``("str", width)`` or ``("dec",)``.
+    Raises NotImplementedError for columns without a word encoding in
+    the port (nested types)."""
     meta = []
     for c in cols:
         if isinstance(c, StringColumn):
             meta.append(("str", int(c.width)))
+        elif isinstance(c, Decimal128Column):
+            meta.append(("dec",))
         elif isinstance(c, PrimitiveColumn):
             meta.append(("prim", dtype_name(c.data.dtype)))
         else:
             raise NotImplementedError(
                 f"hashtable keys of {type(c).__name__} are not supported: "
-                "the port encodes primitive and string key columns; "
-                "decimal128 keys come with ROADMAP item 16d")
+                "the port encodes primitive, string and decimal key "
+                "columns (nested keys: ROADMAP item 16f)")
     return tuple(meta)
 
 
 def words_per_column(meta_entry) -> int:
     if meta_entry[0] == "prim":
         return 2                        # validity, canonical value
+    if meta_entry[0] == "dec":
+        return 3                        # validity, hi, lo
     # string: validity, length, ceil(width / 8) char words (widths are
     # bucketed to multiples of 8 — utils/shapes.bucket_string_width)
     return 2 + (meta_entry[1] + 7) // 8
@@ -161,6 +170,9 @@ def key_words(cols, meta: tuple) -> torch.Tensor:
         ws.append(valid.to(torch.int64))
         if m[0] == "prim":
             ws.append(torch.where(valid, _prim_word(c), 0))
+        elif m[0] == "dec":
+            ws.append(torch.where(valid, c.hi, 0))
+            ws.append(torch.where(valid, c.lo, 0))
         else:
             ws.append(torch.where(valid, c.lens.to(torch.int64), 0))
             ws.extend(_string_words(c))
@@ -176,6 +188,10 @@ def empty_store(meta: tuple, cap: int, device) -> tuple:
             store.append((torch.zeros(cap, dtype=getattr(torch, m[1]),
                                       device=device),
                           torch.zeros(cap, dtype=torch.bool, device=device)))
+        elif m[0] == "dec":
+            store.append(tuple(
+                torch.zeros(cap, dtype=dt, device=device)
+                for dt in (torch.int64, torch.int64, torch.bool)))
         else:
             store.append((torch.zeros((cap, m[1]), dtype=torch.uint8,
                                       device=device),
@@ -187,14 +203,18 @@ def empty_store(meta: tuple, cap: int, device) -> tuple:
 def _col_arrays(col, m) -> tuple:
     if m[0] == "prim":
         return (col.data, col.validity)
+    if m[0] == "dec":
+        return (col.hi, col.lo, col.validity)
     return (col.chars, col.lens, col.validity)
+
+
+_STORE_COLUMN = {"prim": PrimitiveColumn, "dec": Decimal128Column,
+                 "str": StringColumn}
 
 
 def store_columns(store: tuple, meta: tuple) -> tuple:
     """Rebuild key columns from a store (slot-indexed)."""
-    return tuple(PrimitiveColumn(s[0], s[1]) if m[0] == "prim"
-                 else StringColumn(s[0], s[1], s[2])
-                 for s, m in zip(store, meta))
+    return tuple(_STORE_COLUMN[m[0]](*s) for s, m in zip(store, meta))
 
 
 def widen_string_store(tw: torch.Tensor, store: tuple, meta: tuple,

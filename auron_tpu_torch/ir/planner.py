@@ -14,7 +14,10 @@ After planning, ``fuse_stages`` chains row-local operators into
 post-planning passes wait: the map-side combine fold
 (``_fold_combine``, with ``AggOp.build_combine_stage``), so every
 exchange stays unfolded, which gives the same rows; and the mesh
-annotation (``annotate_mesh``), with the mesh.
+annotation (``annotate_mesh``), with the mesh. Where the reference
+would fold a combine, the partial agg's lone computing child is wrapped
+in a stage of its own, as the fold wraps it, so the trees stay the
+reference's.
 
 pyarrow is imported inside the functions that read Arrow data.
 """
@@ -349,7 +352,37 @@ def fuse_stages(op: PhysicalOp, config=None) -> PhysicalOp:
     op = _normalize(op)
     if not conf.get(cfg.FUSION_ENABLED):
         return op
-    return _fuse(op, max(2, conf.get(cfg.FUSION_MAX_STAGE_OPS)))
+    op = _fuse(op, max(2, conf.get(cfg.FUSION_MAX_STAGE_OPS)))
+    _wrap_combine_children(op)
+    return op
+
+
+def _combine_foldable(exchange, agg) -> bool:
+    """The reference folds ``agg`` into ``exchange``'s split program: the
+    agg can combine map-side and the exchange partitions on its group-key
+    refs (or sends everything to one partition)."""
+    from auron_tpu_torch.parallel.partitioning import (HashPartitioning,
+                                                       SinglePartitioning)
+    if agg.combine_fold_reason() is not None:
+        return False
+    part = exchange.partitioning
+    if isinstance(part, SinglePartitioning):
+        return True
+    return isinstance(part, HashPartitioning) and all(
+        isinstance(e, eir.ColumnRef) and e.index < len(agg.group_exprs)
+        for e in part.exprs)
+
+
+def _wrap_combine_children(op: PhysicalOp) -> None:
+    """Wrap the lone computing child of each partial agg under an
+    exchange where the reference folds a map-side combine."""
+    from auron_tpu_torch.ops.agg import AggOp
+    from auron_tpu_torch.parallel.exchange import ShuffleExchangeOp
+    if isinstance(op, ShuffleExchangeOp) and isinstance(op.child, AggOp) \
+            and _combine_foldable(op, op.child):
+        op.child.child = _wrap_single(op.child.child)
+    for c in op.children:
+        _wrap_combine_children(c)
 
 
 def _normalize(op: PhysicalOp) -> PhysicalOp:

@@ -1,7 +1,8 @@
 """TPC-DS-class integration queries the port can run.
 
-Copies of ``auron_tpu.it.queries``'s q01 to q13, with their pandas
-oracles (q03, q04 and q06 to q09 group, filter or sort on strings). Each
+Copies of ``auron_tpu.it.queries``'s q01 to q15, with their oracles
+(q03, q04 and q06 to q09 group, filter or sort on strings; q15
+multiplies two wide decimals and sorts on the product). Each
 query runs through the whole front end: DataFrame DSL → protobuf
 TaskDefinition → physical planner → operators (``ShuffleExchangeOp``
 stages and hash joins included).
@@ -20,7 +21,13 @@ More queries of the same shapes:
   broadcast build side whose rows are ``BROADCAST_OUTER_ROWS``;
 - ``expression_sweep_dataframe``, a select over the customer or the
   item table that calls every scalar function and expression node the
-  port evaluates.
+  port evaluates;
+- ``decimal_money_dataframe``, money columns cast to decimals of both
+  representations and aggregated per store (narrow and wide sums and
+  averages, wide min and max, a narrow product whose sum moves to the
+  limbs), and ``decimal_price_key_dataframe``, a wide decimal group key
+  through the hash table and a top-k sort on it; their oracles compute
+  in Python's ``decimal``.
 
 pyarrow and pandas are imported inside the functions.
 """
@@ -475,6 +482,174 @@ def _q14_oracle(p):
     return g.sort_values("cat_title")[["cat_title", "n", "first_path"]]
 
 
+# q15: wide decimals: cast to decimal(25,2) and decimal(20,0), multiply
+# (Spark's type is decimal(38,2), on the limbs), sort on the product
+
+def q15_dataframe(s, t, dsl=None):
+    d = dsl or PORT_DSL
+    col, T = d.col, d.DataType
+    return (_sales(s, t)
+            .select(col("ss_item_sk"),
+                    (col("ss_sales_price").cast(T.DECIMAL, 25, 2)
+                     * col("ss_quantity").cast(T.DECIMAL, 20, 0))
+                    .alias("rev_dec"))
+            .filter(col("ss_item_sk") < 50)
+            .sort(col("rev_dec").desc(), col("ss_item_sk").asc(), limit=25))
+
+
+def _q15_oracle(p):
+    import decimal
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        ss = p["store_sales"]
+        f = ss[ss.ss_item_sk < 50].copy()
+        q = decimal.Decimal("0.01")
+        f["rev_dec"] = [
+            (decimal.Decimal(str(round(px, 2))).quantize(q)
+             * decimal.Decimal(int(n)))
+            for px, n in zip(f.ss_sales_price, f.ss_quantity)]
+        out = f.sort_values(["rev_dec", "ss_item_sk"],
+                            ascending=[False, True]).head(25)
+        return out[["ss_item_sk", "rev_dec"]]
+
+
+# decimal money: the store_sales money columns as decimals, aggregated
+# per store
+
+def decimal_money_dataframe(s, t, dsl=None):
+    """Per store: ``price`` = ss_sales_price as decimal(7,2), ``paid`` =
+    ss_net_paid as decimal(20,2) (two limbs; null rows stay null) and
+    ``ext`` = price × ss_quantity as decimal(10,0), a decimal(18,2);
+    then sum(price) → (17,2), avg(price) → (11,6), sum(paid) → (30,2),
+    avg(paid) → (24,6), min and max of paid, count(paid) and sum(ext) →
+    (28,2), which moves to the limbs; sorted by the store."""
+    d = dsl or PORT_DSL
+    col, F, T = d.col, d.F, d.DataType
+    price = col("ss_sales_price").cast(T.DECIMAL, 7, 2)
+    return (_sales(s, t)
+            .select(col("ss_store_sk"), price.alias("price"),
+                    col("ss_net_paid").cast(T.DECIMAL, 20, 2).alias("paid"),
+                    (price * col("ss_quantity").cast(T.DECIMAL, 10, 0))
+                    .alias("ext"))
+            .group_by("ss_store_sk")
+            .agg(F.sum(col("price")).alias("sum_price"),
+                 F.avg(col("price")).alias("avg_price"),
+                 F.sum(col("paid")).alias("sum_paid"),
+                 F.avg(col("paid")).alias("avg_paid"),
+                 F.min(col("paid")).alias("min_paid"),
+                 F.max(col("paid")).alias("max_paid"),
+                 F.count(col("paid")).alias("n_paid"),
+                 F.sum(col("ext")).alias("sum_ext"))
+            .sort(col("ss_store_sk").asc()))
+
+
+#: the result fields' (precision, scale) of ``decimal_money_dataframe``
+DECIMAL_MONEY_TYPES = {"sum_price": (17, 2), "avg_price": (11, 6),
+                       "sum_paid": (30, 2), "avg_paid": (24, 6),
+                       "min_paid": (20, 2), "max_paid": (20, 2),
+                       "sum_ext": (28, 2)}
+
+
+def _unscaled(values, scale: int):
+    """Float money values cast to a decimal's unscaled ints, as the
+    cast computes them: x * 10^scale rounded half to even in float64."""
+    import numpy as np
+    return np.round(np.asarray(values, np.float64) * 10.0 ** scale)
+
+
+def _dec(unscaled: int, scale: int):
+    import decimal
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        return decimal.Decimal(int(unscaled)).scaleb(-scale)
+
+
+def _avg_half_up(total: int, count: int, shift: int) -> int:
+    """round(total * 10^shift / count), halves away from zero."""
+    q = (abs(total) * 10 ** shift * 2 + count) // (2 * count)
+    return q if total >= 0 else -q
+
+
+def _by_key(keys, *columns):
+    """The sorted distinct keys, each row's group start in key order, and
+    the columns in that order (for ``np.ufunc.reduceat``)."""
+    import numpy as np
+    order = np.argsort(keys, kind="stable")
+    uniq, starts = np.unique(keys[order], return_index=True)
+    return uniq, starts, [c[order] for c in columns]
+
+
+def _decimal_money_oracle(p):
+    """Exact per-store integer sums, minima and maxima of the unscaled
+    values (numpy int64: at TPC-DS SF10 a store's sum stays below 2^40),
+    then Python's ``decimal`` for the values and the HALF_UP averages."""
+    import numpy as np
+    import pandas as pd
+    ss = p["store_sales"]
+    price = _unscaled(ss.ss_sales_price, 2).astype(np.int64)
+    ok = ss.ss_net_paid.notna().to_numpy()
+    paid = np.where(ok, _unscaled(ss.ss_net_paid.fillna(0.0), 2), 0) \
+        .astype(np.int64)
+    ext = price * ss.ss_quantity.to_numpy(np.int64)
+    big = np.iinfo(np.int64)
+    stores, starts, (pr, pd_, ok_, ex, lo, hi) = _by_key(
+        ss.ss_store_sk.to_numpy(np.int64), price, paid, ok.astype(np.int64),
+        ext, np.where(ok, paid, big.max), np.where(ok, paid, big.min))
+    sums = {name: np.add.reduceat(a, starts).tolist()
+            for name, a in (("price", pr), ("paid", pd_), ("n", ok_),
+                            ("ext", ex))}
+    rows_n = np.diff(np.append(starts, len(pr))).tolist()
+    mins = np.minimum.reduceat(lo, starts).tolist()
+    maxs = np.maximum.reduceat(hi, starts).tolist()
+    rows = []
+    for i, store in enumerate(stores.tolist()):
+        n_paid = sums["n"][i]
+        rows.append({
+            "ss_store_sk": store,
+            "sum_price": _dec(sums["price"][i], 2),
+            "avg_price": _dec(_avg_half_up(sums["price"][i], rows_n[i], 4),
+                              6),
+            "sum_paid": _dec(sums["paid"][i], 2) if n_paid else None,
+            "avg_paid": _dec(_avg_half_up(sums["paid"][i], n_paid, 4), 6)
+            if n_paid else None,
+            "min_paid": _dec(mins[i], 2) if n_paid else None,
+            "max_paid": _dec(maxs[i], 2) if n_paid else None,
+            "n_paid": n_paid,
+            "sum_ext": _dec(sums["ext"][i], 2)})
+    return pd.DataFrame(rows)
+
+
+# a wide decimal group key: the hash table's limb keys, then a top-k
+# sort on the key
+
+def decimal_price_key_dataframe(s, t, dsl=None):
+    """ss_sales_price as decimal(20,2) (two limbs) as the group key,
+    with count(*) and sum(ss_quantity), the 100 largest keys."""
+    d = dsl or PORT_DSL
+    col, F, T = d.col, d.F, d.DataType
+    return (_sales(s, t)
+            .select(col("ss_sales_price").cast(T.DECIMAL, 20, 2)
+                    .alias("price_key"), col("ss_quantity"))
+            .group_by("price_key")
+            .agg(F.count_star().alias("n"),
+                 F.sum(col("ss_quantity")).alias("qty"))
+            .sort(col("price_key").desc(), limit=100))
+
+
+def _decimal_price_key_oracle(p):
+    import numpy as np
+    import pandas as pd
+    ss = p["store_sales"]
+    keys, starts, (q,) = _by_key(
+        _unscaled(ss.ss_sales_price, 2).astype(np.int64),
+        ss.ss_quantity.to_numpy(np.int64))
+    n = np.diff(np.append(starts, len(q)))
+    qty = np.add.reduceat(q, starts)
+    keys, n, qty = keys[::-1][:100], n[::-1][:100], qty[::-1][:100]
+    return pd.DataFrame({"price_key": [_dec(k, 2) for k in keys],
+                         "n": n, "qty": qty})
+
+
 # the expression sweep: every scalar function and node, over customer
 # and item
 
@@ -703,6 +878,8 @@ QUERIES = [
           _q12_oracle),
     Query("q14_string_functions", "round-3 string fns→agg", q14_dataframe,
           _q14_oracle),
+    Query("q15_wide_decimal", "decimal(>18) arith→sort", q15_dataframe,
+          _q15_oracle),
     Query("q13_distinct_buyers", "nested aggs through exchange",
           q13_dataframe, _q13_oracle),
 ]

@@ -119,10 +119,9 @@ class HashAggDecision:
         return self.backend == "hashtable"
 
 
-#: key column dtypes with a hashtable word encoding in the reference;
-#: nested types (STRUCT/LIST/MAP) stay on the sort path. The port's
-#: hashtable/core.key_meta encodes primitive and string columns, and
-#: raises for the decimal128 columns a plan could pass here (16d).
+#: key column dtypes with a hashtable word encoding; nested types
+#: (STRUCT/LIST/MAP) stay on the sort path. hashtable/core.key_meta
+#: encodes primitive, string and decimal (narrow or two-limb) columns.
 HASH_KEY_DTYPES = frozenset(
     {DataType.BOOL, DataType.INT8, DataType.INT16, DataType.INT32,
      DataType.INT64, DataType.FLOAT32, DataType.FLOAT64,

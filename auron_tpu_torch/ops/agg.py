@@ -1,9 +1,9 @@
 """Grouped aggregation: ``AggOp`` in partial, final and complete modes.
 
-The port of ``auron_tpu.ops.agg`` for primitive and string keys, and the
-aggregates sum, count, count_star, avg, min, max and first (min, max,
-first and count over strings too). Three paths, chosen per execution as
-the reference chooses them:
+The port of ``auron_tpu.ops.agg`` for primitive, string and decimal keys,
+and the aggregates sum, count, count_star, avg, min, max and first (min,
+max, first and count over strings too). Three paths, chosen per
+execution as the reference chooses them:
 
 - **sort** (the general path): per batch, xxhash64 of the keys → stable
   argsort → segment reduce into a hash-sorted group table; the table
@@ -33,12 +33,26 @@ every row, and an integer ``amin`` of the ranks picks each group's
 winner, so the order of a device's atomics cannot change the answer.
 The reference's dispatch sends them to the sort path (``acc_kind:smin``).
 
+Decimals take Spark's result types: ``sum(decimal(p, s))`` is
+``decimal(min(p + 10, 38), s)``, ``avg`` is ``decimal(min(p + 4, 38),
+min(s + 4, 38))``. A result or an argument past 18 digits accumulates
+on two int64 limbs (``_DEC_KINDS``: ``dsum``, ``dmin``, ``dmax``,
+``dfirst``; the accumulator is a pair (hi, lo)): ``dsum`` adds the low
+limb's 32-bit halves and the high limb as separate int64 sums and
+recombines the carries, ``dmin``/``dmax`` take the high limb's extreme,
+then the low limb's among the rows tied on it. A wide sum that passes
+its precision is null; an average shifts to its scale inside the HALF_UP
+division (``decimal128.avg_pow10_div_half_up``). These kinds are not
+the hash table's: the dispatch keeps them on the sort path
+(``acc_kind:dsum``).
+
 Host syncs: each step that needs a group count on the host — the batch
 reduce, a merge, the dense emit, a hash-table update — reads all its
 control scalars in one ``ops.base.host_readback``. The spill tier, the
-host-side aggregates (bloom filter, UDAF), collect_list/set, DISTINCT,
-and decimal columns are not ported: they raise ``NotImplementedError``
-naming the feature.
+host-side aggregates (bloom filter, UDAF), collect_list/set and
+DISTINCT are not ported: they raise ``NotImplementedError`` naming the
+feature (DISTINCT and collect over decimals: ROADMAP item 16f; the
+spill of decimal state: 18).
 """
 
 from __future__ import annotations
@@ -49,8 +63,10 @@ from typing import Iterator, Optional
 import torch
 
 from auron_tpu_torch import config as cfg
-from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
-                                            StringColumn, gather_column,
+from auron_tpu_torch.columnar import decimal128 as D
+from auron_tpu_torch.columnar.batch import (Decimal128Column, DeviceBatch,
+                                            PrimitiveColumn, StringColumn,
+                                            gather_column,
                                             unify_column_widths)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
@@ -71,6 +87,7 @@ _SUM_DTYPE = {
     DataType.INT8: DataType.INT64, DataType.INT16: DataType.INT64,
     DataType.INT32: DataType.INT64, DataType.INT64: DataType.INT64,
     DataType.FLOAT32: DataType.FLOAT64, DataType.FLOAT64: DataType.FLOAT64,
+    DataType.DECIMAL: DataType.DECIMAL,
 }
 
 #: value types the ported accumulators take
@@ -81,6 +98,16 @@ _PRIMITIVE = frozenset(_SUM_DTYPE) | {DataType.BOOL, DataType.DATE32,
 #: (chars[cap, W] uint8, lens[cap] int32, valid[cap] bool)
 _STR_KINDS = ("smin", "smax", "sfirst", "sfirst_ign")
 
+#: reduce kinds over two-limb decimal(p > 18) values; their accumulator
+#: is a pair (hi[cap], lo[cap]) of int64 limbs
+_DEC_KINDS = ("dsum", "dmin", "dmax", "dfirst")
+
+#: the limb-pair neutrals: dmin's is 2^127 - 1 (hi = INT64_MAX, lo all
+#: ones), dmax's -2^127; decimals stay below 10^38 < 2^127, so neither
+#: collides with a value
+_DEC_NEUTRAL = {"dmin": (0x7FFFFFFFFFFFFFFF, -1),
+                "dmax": (-0x8000000000000000, 0)}
+
 
 @dataclass(frozen=True)
 class AccSpec:
@@ -88,10 +115,23 @@ class AccSpec:
 
     state_fields: (name, dtype, reduce_kind) per state column; reduce
     kinds: sum | min | max | or | first (the value at the first-ordered
-    live row of the group)."""
+    live row of the group), the string kinds and the decimal kinds.
+    ``state_ps``: per state field, the (precision, scale) of a decimal
+    state column whose type is not the result's (avg's sum accumulates
+    at the input scale; the count field carries the result's (p, s), so
+    a final agg rebuilt from the partial schema recovers the type);
+    None means the result's."""
     fn: str
     state_fields: tuple
     result: tuple  # (dtype, precision, scale)
+    state_ps: Optional[tuple] = None
+
+
+def decimal_avg_result(p: int, s: int) -> tuple[int, int]:
+    """Spark's avg(decimal(p, s)): ``DecimalType.bounded(p + 4, s + 4)``,
+    each bound clamped at 38 on its own (avg(decimal(38, 18)) is
+    decimal(38, 22)), not the scale reduction binary arithmetic uses."""
+    return min(p + 4, 38), min(s + 4, 38)
 
 
 def _unsupported(what: str):
@@ -119,9 +159,68 @@ def _string_spec(fn: str) -> "AccSpec":
                    (DataType.STRING, 0, 0))
 
 
+def _refuse_wide_decimal(agg: ir.AggFunction, in_schema: Schema) -> None:
+    """The reference's plan-time refusals of a decimal(p > 18) argument,
+    word for word: DISTINCT count/sum/avg, bloom filters and UDAFs read
+    single-word columns."""
+    fn = agg.fn
+    if agg.distinct and fn in ("count", "sum", "avg"):
+        dt, p, _s = infer_dtype(agg.arg, in_schema)
+        if dt == DataType.DECIMAL and p > 18:
+            raise NotImplementedError(
+                f"{fn} DISTINCT over decimal(p={p}>18): the set "
+                "accumulator is single-word; cast the arg first")
+    if (fn == "bloom_filter" or fn.startswith("udaf:")) \
+            and agg.arg is not None:
+        _dt, _p, _s = infer_dtype(agg.arg, in_schema)
+        if _dt == DataType.DECIMAL and _p > 18:
+            raise NotImplementedError(
+                f"{fn} over decimal(p={_p}>18): cast the arg to "
+                "decimal(<=18) or double first")
+
+
+def _decimal_spec(fn: str, p: int, s: int) -> AccSpec:
+    """sum, avg, min, max or first over a decimal(p, s)."""
+    wide = p > 18
+    if fn == "sum":
+        if p + 10 > 18:
+            # a narrow input with p in 9..18 moves to the limbs with
+            # Spark's type; a wide sum past 2^127 wraps before the 10^38
+            # check can see it, as a narrow int64 sum would
+            return AccSpec(fn, (("sum", DataType.DECIMAL, "dsum"),
+                                ("has", DataType.BOOL, "or")),
+                           (DataType.DECIMAL, min(p + 10, 38), s))
+        return AccSpec(fn, (("sum", DataType.DECIMAL, "sum"),
+                            ("has", DataType.BOOL, "or")),
+                       (DataType.DECIMAL, min(p + 10, 18), s))
+    if fn == "avg":
+        # the sum accumulates at the INPUT scale; the finalizer shifts to
+        # the result scale inside the division
+        if wide or p + 4 > 18:
+            # past 18 digits: avg(decimal(16, 2)) is decimal(20, 6)
+            rp, rs = decimal_avg_result(p, s)
+            sp, kind = min(p + 10, 38), "dsum"
+        else:
+            rp = p + 4
+            rs = min(s + 4, rp)
+            sp, kind = min(p + 10, 18), "sum"
+        return AccSpec(fn, (("sum", DataType.DECIMAL, kind),
+                            ("count", DataType.INT64, "sum")),
+                       (DataType.DECIMAL, rp, rs),
+                       state_ps=((sp, s), (rp, rs)))
+    if fn in ("min", "max"):
+        kind = f"d{fn}" if wide else fn
+    else:   # first and first_ignores_null share one kind
+        kind = "dfirst" if wide else "first"
+    return AccSpec(fn, (("val", DataType.DECIMAL, kind),
+                        ("has", DataType.BOOL, "or")),
+                   (DataType.DECIMAL, p, s))
+
+
 def make_acc_spec(agg: ir.AggFunction, in_schema: Schema,
                   mode: str) -> AccSpec:
     fn = agg.fn
+    _refuse_wide_decimal(agg, in_schema)
     if agg.distinct:
         raise _unsupported(f"{fn} DISTINCT")
     if fn in ("count", "count_star"):
@@ -133,6 +232,9 @@ def make_acc_spec(agg: ir.AggFunction, in_schema: Schema,
     dt = _arg_dtype(agg, in_schema)
     if dt == DataType.STRING:
         return _string_spec(fn)
+    if dt == DataType.DECIMAL:
+        _dt, p, s = infer_dtype(agg.arg, in_schema)
+        return _decimal_spec(fn, p, s)
     if fn == "sum":
         sdt = _SUM_DTYPE.get(dt)
         if sdt is None:
@@ -170,20 +272,30 @@ def make_acc_spec_from_partial(agg: ir.AggFunction, in_schema: Schema,
         return _string_spec(fn)
     if f0.dtype not in _PRIMITIVE:
         raise _unsupported(f"{fn} state of {f0.dtype.value}")
+    wide = f0.dtype == DataType.DECIMAL and f0.precision > 18
     if fn == "sum":
-        return AccSpec(fn, (("sum", f0.dtype, "sum"),
+        return AccSpec(fn, (("sum", f0.dtype, "dsum" if wide else "sum"),
                             ("has", DataType.BOOL, "or")),
                        (f0.dtype, f0.precision, f0.scale))
     if fn == "avg":
+        if f0.dtype == DataType.DECIMAL:
+            # the partial side put the result's (p, s) in the count
+            # field's precision and scale
+            f1 = in_schema[start_idx + 1]
+            rp, rs = f1.precision, f1.scale
+            return AccSpec(fn, (("sum", f0.dtype, "dsum" if wide else "sum"),
+                                ("count", DataType.INT64, "sum")),
+                           (DataType.DECIMAL, rp, rs),
+                           state_ps=((f0.precision, f0.scale), (rp, rs)))
         return AccSpec(fn, (("sum", f0.dtype, "sum"),
                             ("count", DataType.INT64, "sum")),
                        (DataType.FLOAT64, 0, 0))
     if fn in ("min", "max"):
-        return AccSpec(fn, (("val", f0.dtype, fn),
+        return AccSpec(fn, (("val", f0.dtype, f"d{fn}" if wide else fn),
                             ("has", DataType.BOOL, "or")),
                        (f0.dtype, f0.precision, f0.scale))
     if fn in ("first", "first_ignores_null"):
-        return AccSpec(fn, (("val", f0.dtype, "first"),
+        return AccSpec(fn, (("val", f0.dtype, "dfirst" if wide else "first"),
                             ("has", DataType.BOOL, "or")),
                        (f0.dtype, f0.precision, f0.scale))
     raise _unsupported(f"aggregate function {fn}")
@@ -296,6 +408,10 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
             new_accs.append(_reduce_string(kind, acc, live_s, dest, out_cap,
                                            spare, out_valid))
             continue
+        if kind in _DEC_KINDS:
+            new_accs.append(_reduce_decimal(kind, acc, live_s, gid, dest,
+                                            rep, out_cap, spare))
+            continue
         if kind == "first":
             # the value at the first sorted live row of the group
             new_accs.append(acc[rep])
@@ -303,6 +419,36 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
         masked = torch.where(live_s, acc, _neutral(kind, acc.dtype))
         new_accs.append(_segment(kind, masked, dest, out_cap, spare))
     return new_keys, tuple(new_accs), h_out, num_groups
+
+
+def _reduce_decimal(kind: str, acc, live_s: torch.Tensor, gid: torch.Tensor,
+                    dest: torch.Tensor, rep: torch.Tensor, out_cap: int,
+                    spare: int):
+    """One limb-pair accumulator of rows sorted by group → its per-group
+    (hi, lo). dsum: exact mod 2^128 (the low limb's two 32-bit halves and
+    the high limb summed as int64, a half-sum of < 2^31 rows staying
+    below 2^63, then the carries); dmin/dmax: the high limb's extreme,
+    then the unsigned extreme of the low limbs tied on it; dfirst: the
+    group's first live row."""
+    h_acc, l_acc = acc
+    if kind == "dfirst":
+        return h_acc[rep], l_acc[rep]
+    if kind == "dsum":
+        lo_lo = torch.where(live_s, l_acc & D._M32, 0)
+        lo_hi = torch.where(live_s, D._lsr32(l_acc), 0)
+        s_ll = _segment("sum", lo_lo, dest, out_cap, spare)
+        s_lh = _segment("sum", lo_hi, dest, out_cap, spare)
+        s_h = _segment("sum", torch.where(live_s, h_acc, 0), dest, out_cap,
+                       spare)
+        mid = (s_ll >> 32) + s_lh          # both non-negative
+        return s_h + (mid >> 32), (s_ll & D._M32) | (mid << 32)
+    red = "min" if kind == "dmin" else "max"
+    nh, _nl = _DEC_NEUTRAL[kind]
+    mh = _segment(red, torch.where(live_s, h_acc, nh), dest, out_cap, spare)
+    tied = live_s & (h_acc == mh[gid.clamp(max=out_cap - 1).to(torch.int64)])
+    lx = torch.where(tied, l_acc ^ D._SIGN,
+                     0x7FFFFFFFFFFFFFFF if kind == "dmin" else D._SIGN)
+    return mh, _segment(red, lx, dest, out_cap, spare) ^ D._SIGN
 
 
 def _reduce_string(kind: str, acc, live_s: torch.Tensor, dest: torch.Tensor,
@@ -349,8 +495,9 @@ def _slice_acc(a, n: int):
 
 
 def _unify_acc_pair(a, b) -> tuple:
-    """Pad the char matrices of two string accumulators to one width."""
-    if not isinstance(a, tuple):
+    """Pad the char matrices of two string accumulators to one width (a
+    decimal's limb pair has none)."""
+    if not isinstance(a, tuple) or a[0].dim() == 1:
         return a, b
     w = max(a[0].shape[1], b[0].shape[1])
 
@@ -362,7 +509,9 @@ def _unify_acc_pair(a, b) -> tuple:
 
 def _acc_column(a, valid: torch.Tensor):
     """An accumulator as a state or result column: a string triple keeps
-    its validity, masked by ``valid``."""
+    its validity, masked by ``valid``; a limb pair takes ``valid``."""
+    if isinstance(a, tuple) and len(a) == 2:
+        return Decimal128Column(a[0], a[1], valid)
     if isinstance(a, tuple):
         return StringColumn(a[0], a[1], a[2] & valid)
     return PrimitiveColumn(a, valid)
@@ -371,6 +520,8 @@ def _acc_column(a, valid: torch.Tensor):
 def _slice_column(c, n: int):
     if isinstance(c, StringColumn):
         return StringColumn(c.chars[:n], c.lens[:n], c.validity[:n])
+    if isinstance(c, Decimal128Column):
+        return Decimal128Column(c.hi[:n], c.lo[:n], c.validity[:n])
     return PrimitiveColumn(c.data[:n], c.validity[:n])
 
 
@@ -416,6 +567,9 @@ def _state_merge(kinds, out_cap: int, keys_s, accs_s, h_s, n_s, keys_b,
         if isinstance(a, StringColumn):
             return StringColumn(*merged((a.chars, a.lens, a.validity),
                                         (b.chars, b.lens, b.validity)))
+        if isinstance(a, Decimal128Column):
+            return Decimal128Column(*merged((a.hi, a.lo, a.validity),
+                                            (b.hi, b.lo, b.validity)))
         return PrimitiveColumn(merged(a.data, b.data),
                                merged(a.validity, b.validity))
 
@@ -432,7 +586,8 @@ def _state_merge(kinds, out_cap: int, keys_s, accs_s, h_s, n_s, keys_b,
 def _state_accs(specs, batch: DeviceBatch, start: int) -> list:
     """The accumulator columns of a batch in partial-state layout, from
     column ``start`` on: as they are, a 'has' flag masked by its
-    validity."""
+    validity. A limb pair's invalid rows already hold the reduction's
+    neutral (the partial emit and the passthrough put it there)."""
     accs = []
     idx = start
     for spec in specs:
@@ -440,6 +595,8 @@ def _state_accs(specs, batch: DeviceBatch, start: int) -> list:
             col = batch.columns[idx]
             if kind in _STR_KINDS:
                 accs.append((col.chars, col.lens, col.validity))
+            elif kind in _DEC_KINDS:
+                accs.append((col.hi, col.lo))
             else:
                 accs.append(col.data.bool() & col.validity if fname == "has"
                             else col.data)
@@ -471,6 +628,10 @@ def _contribution_columns(group_exprs, mode: str, aggs, specs,
         if isinstance(v.col, StringColumn):
             accs.append((v.col.chars, v.col.lens, valid))
             continue
+        if isinstance(v.col, Decimal128Column) or any(
+                k in _DEC_KINDS for _f, _d, k in spec.state_fields):
+            accs.extend(_decimal_contributions(spec, v, valid))
+            continue
         for fname, fdt, kind in spec.state_fields:
             if fname == "has":
                 accs.append(valid)
@@ -489,12 +650,71 @@ def _contribution_columns(group_exprs, mode: str, aggs, specs,
     return keys, accs, live
 
 
+def _decimal_contributions(spec: AccSpec, v, valid: torch.Tensor) -> list:
+    """Per-row accumulators of a decimal argument on the limbs (a narrow
+    argument sign-extended, for a sum or avg whose result passes 18
+    digits); invalid rows hold each kind's neutral."""
+    hi, lo = (v.col.hi, v.col.lo) if isinstance(v.col, Decimal128Column) \
+        else D.from_int64(v.data.to(torch.int64))
+    out = []
+    for fname, _fdt, kind in spec.state_fields:
+        if fname == "has":
+            out.append(valid)
+        elif fname == "count":
+            out.append(valid.to(torch.int64))
+        elif kind == "dsum":
+            out.append((torch.where(valid, hi, 0), torch.where(valid, lo, 0)))
+        elif kind in ("dmin", "dmax"):
+            nh, nl = _DEC_NEUTRAL[kind]
+            out.append((torch.where(valid, hi, nh),
+                        torch.where(valid, lo, nl)))
+        elif kind == "dfirst":
+            out.append((hi, lo))
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def _state_ps(spec: AccSpec, fi: int, fdt: DataType) -> tuple[int, int]:
+    """(precision, scale) of state field ``fi`` in the partial schema."""
+    if spec.state_ps is not None:
+        return spec.state_ps[fi]
+    if fdt == DataType.DECIMAL:
+        return spec.result[1], spec.result[2]
+    return 0, 0
+
+
 def _passthrough_state_batch(keys, accs, live, num_rows) -> DeviceBatch:
     """One input batch in partial-state layout without merging: each
     row is its own group (partial-agg skipping)."""
-    cols = list(keys) + [StringColumn(*a) if isinstance(a, tuple)
+    cols = list(keys) + [Decimal128Column(a[0], a[1], live)
+                         if isinstance(a, tuple) and len(a) == 2
+                         else StringColumn(*a) if isinstance(a, tuple)
                          else PrimitiveColumn(a, live) for a in accs]
     return DeviceBatch(tuple(cols), num_rows)
+
+
+def _finish_avg(spec: AccSpec, s, cnt: torch.Tensor, valid: torch.Tensor):
+    """An average from its (sum, count) state: float64 for a number; for
+    a decimal the sum (at the input scale) shifts to the result scale
+    inside a HALF_UP division, q * 10^k + round(r * 10^k / count), and
+    an average that cannot fit its precision is null."""
+    safe = cnt.clamp(min=1)
+    if isinstance(s, tuple):
+        k = spec.result[2] - spec.state_ps[0][1]
+        qh, ql, fits = D.avg_pow10_div_half_up(s[0], s[1], safe, k)
+        return Decimal128Column(qh, ql, valid & (cnt > 0) & fits)
+    if spec.result[0] == DataType.DECIMAL:
+        k = spec.result[2] - spec.state_ps[0][1]
+        shift = 10 ** k
+        a = torch.abs(s)
+        q0 = a // safe
+        rem = a - q0 * safe
+        fits = q0 < 10 ** (18 - k)
+        q = q0 * shift + (2 * rem * shift + safe) // (2 * safe)
+        return PrimitiveColumn(torch.where(s < 0, -q, q),
+                               valid & (cnt > 0) & fits)
+    return PrimitiveColumn(s.to(torch.float64) / safe, valid & (cnt > 0))
 
 
 class _HashPathCtl:
@@ -558,9 +778,11 @@ class AggOp(PhysicalOp):
         key_fields = [infer_field(e, in_schema, n)
                       for e, n in zip(self.group_exprs, self.group_names)]
         if mode == "partial":
-            state_fields = [Field(f"{an}#{fname}", fdt, True)
+            state_fields = [Field(f"{an}#{fname}", fdt, True,
+                                  *_state_ps(spec, fi, fdt))
                             for spec, an in zip(self.specs, self.agg_names)
-                            for fname, fdt, _kind in spec.state_fields]
+                            for fi, (fname, fdt, _kind)
+                            in enumerate(spec.state_fields)]
             self._schema = Schema(tuple(key_fields + state_fields))
         else:
             out_fields = [Field(n, spec.result[0], True, spec.result[1],
@@ -578,6 +800,27 @@ class AggOp(PhysicalOp):
     def _device_kinds(self) -> list[str]:
         return [kind for spec in self.specs
                 for (_f, _d, kind) in spec.state_fields]
+
+    def combine_fold_reason(self) -> Optional[str]:
+        """None when the reference folds this agg into its shuffle-split
+        program as a map-side combine, else why not. The port keeps no
+        host or collect state, so those reasons of the reference's never
+        arise."""
+        if self.mode != "partial":
+            return "not_partial"
+        if not self.group_exprs:
+            return "no_group_keys"
+        if self.key_domain is not None:
+            return "dense_domain"
+        exact = {"sum", "min", "max", "or", "first", *_STR_KINDS,
+                 *_DEC_KINDS}
+        if any(k not in exact for k in self._device_kinds()):
+            return "unsupported_kind"
+        if any(kind == "sum" and fdt in (DataType.FLOAT32, DataType.FLOAT64)
+               for spec in self.specs
+               for (_f, fdt, kind) in spec.state_fields):
+            return "float_sum_inexact"
+        return None
 
     # -- sort path: table steps ---------------------------------------------
 
@@ -767,12 +1010,19 @@ class AggOp(PhysicalOp):
             elif spec.result[0] == DataType.STRING:  # validity inside
                 out_cols.append(_acc_column(state_vals[0], valid))
             elif fn == "avg":
-                s, cnt = state_vals
-                avg = s.to(torch.float64) / cnt.clamp(min=1)
-                out_cols.append(PrimitiveColumn(avg, valid & (cnt > 0)))
+                out_cols.append(_finish_avg(spec, *state_vals, valid))
             else:   # sum, min, max, first: the second field is 'has'
                 v, has = state_vals
-                out_cols.append(PrimitiveColumn(v, valid & has))
+                if isinstance(v, tuple) and fn == "sum":
+                    # Spark non-ANSI: a sum past its precision is null
+                    fits = D.fits_precision(v[0], v[1], spec.result[1])
+                    out_cols.append(Decimal128Column(v[0], v[1],
+                                                     valid & has & fits))
+                elif isinstance(v, tuple):
+                    out_cols.append(Decimal128Column(v[0], v[1],
+                                                     valid & has))
+                else:
+                    out_cols.append(PrimitiveColumn(v, valid & has))
         return DeviceBatch(tuple(out_cols), num_groups)
 
     def _empty_global(self, device) -> DeviceBatch:
@@ -784,6 +1034,12 @@ class AggOp(PhysicalOp):
                 cols.append(StringColumn(
                     torch.zeros((1, 1), dtype=torch.uint8, device=device),
                     torch.zeros(1, dtype=torch.int32, device=device),
+                    torch.zeros(1, dtype=torch.bool, device=device)))
+                continue
+            if spec.result[0] == DataType.DECIMAL and spec.result[1] > 18:
+                cols.append(Decimal128Column(
+                    torch.zeros(1, dtype=torch.int64, device=device),
+                    torch.zeros(1, dtype=torch.int64, device=device),
                     torch.zeros(1, dtype=torch.bool, device=device)))
                 continue
             dt = spec.result[0].to_torch()

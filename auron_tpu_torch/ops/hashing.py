@@ -1,7 +1,8 @@
-"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive and string
-columns.
+"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive, string and
+decimal columns.
 
-The port of ``auron_tpu.ops.hashing``'s primitive and string arms,
+The port of ``auron_tpu.ops.hashing``'s primitive, string and decimal
+arms,
 bit-identical to it (and so to Spark's XxHash64 and Murmur3_x86_32):
 every value contributes the hash of its little-endian bytes, multi-column
 hashes chain the running hash through the seed, and NULL leaves the
@@ -12,7 +13,10 @@ shuffle. A string hashes its first ``lens`` bytes of a zero-padded
 8-byte blocks, one 4-byte block and tail bytes) run for every row in
 lock-step, each step applied where the row's length reaches it. No byte
 at or past a row's length is read, so the hash does not depend on the
-width.
+width. A decimal of precision <= 18 hashes its unscaled int64; a wider
+one its low limb, then its high limb, as two int64 words (the
+reference's departure from Spark, which hashes the minimal big-endian
+bytes).
 
 PyTorch has no unsigned 64-bit shifts or adds, so xxhash64 runs in
 int64: ``+`` and ``*`` wrap mod 2^64 exactly as uint64 does, the primes
@@ -27,7 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.columnar.batch import (PrimitiveColumn, StringColumn,
+from auron_tpu_torch.columnar.batch import (Decimal128Column,
+                                            PrimitiveColumn, StringColumn,
                                             unify_column_widths)
 from auron_tpu_torch.ops.strings import le_words
 
@@ -110,11 +115,11 @@ def nan_aware_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _require_key(c) -> None:
-    if not isinstance(c, (PrimitiveColumn, StringColumn)):
+    if not isinstance(c, (PrimitiveColumn, StringColumn, Decimal128Column)):
         raise NotImplementedError(
             f"keys of {type(c).__name__}: the port compares and hashes "
-            "primitive and string columns only; decimal128 keys come with "
-            "ROADMAP item 16d, struct, list and map keys with 16f")
+            "primitive, string and decimal columns only; struct, list and "
+            "map keys come with ROADMAP item 16f")
 
 
 def pairwise_eq(pc, probe_idx: torch.Tensor, bc,
@@ -129,6 +134,9 @@ def pairwise_eq(pc, probe_idx: torch.Tensor, bc,
         pc, bc = unify_column_widths([pc, bc])
         return (pc.chars[probe_idx] == bc.chars[build_idx]).all(dim=1) \
             & (pc.lens[probe_idx] == bc.lens[build_idx])
+    if isinstance(pc, Decimal128Column):
+        return (pc.hi[probe_idx] == bc.hi[build_idx]) \
+            & (pc.lo[probe_idx] == bc.lo[build_idx])
     return nan_aware_eq(pc.data[probe_idx], bc.data[build_idx])
 
 
@@ -141,6 +149,8 @@ def adjacent_eq(col) -> torch.Tensor:
     if isinstance(col, StringColumn):
         same = (col.chars[1:] == col.chars[:-1]).all(dim=1) \
             & (col.lens[1:] == col.lens[:-1])
+    elif isinstance(col, Decimal128Column):
+        same = (col.hi[1:] == col.hi[:-1]) & (col.lo[1:] == col.lo[:-1])
     else:
         same = nan_aware_eq(col.data[1:], col.data[:-1])
     return (both_valid & same) | both_null
@@ -258,6 +268,12 @@ def murmur3_string(chars: torch.Tensor, lens: torch.Tensor,
 def _hash_column_murmur(col, hashes: torch.Tensor) -> torch.Tensor:
     """One column's contribution to the running murmur3 hash (int32[n])."""
     _require_key(col)
+    if isinstance(col, Decimal128Column):
+        # the limb pair, low then high, as two int64 words: the
+        # reference's departure from Spark, which hashes a wide decimal's
+        # minimal big-endian bytes; partition ids stay the reference's
+        new = murmur3_int64(col.hi, murmur3_int64(col.lo, hashes))
+        return torch.where(col.validity, new, hashes)
     if isinstance(col, StringColumn):
         new = murmur3_string(col.chars, col.lens, hashes)
         return torch.where(col.validity, new, hashes)
@@ -369,6 +385,10 @@ def xxhash64_string(chars: torch.Tensor, lens: torch.Tensor,
 
 def _hash_column_xxhash(col, hashes: torch.Tensor) -> torch.Tensor:
     _require_key(col)
+    if isinstance(col, Decimal128Column):
+        # the limb pair, low then high (see _hash_column_murmur)
+        new = xxhash64_int64(col.hi, xxhash64_int64(col.lo, hashes))
+        return torch.where(col.validity, new, hashes)
     if isinstance(col, StringColumn):
         new = xxhash64_string(col.chars, col.lens, hashes)
         return torch.where(col.validity, new, hashes)

@@ -35,8 +35,10 @@ spill and its sort-merge fallback wait for the memory manager (ROADMAP
 item 18) and ``SortMergeJoinOp`` (16f). A string key hashes its bytes
 and matches byte for byte at either side's width; string payloads ride
 the gathers, and a left or full join pads the build side with null
-strings of the build's width, as the reference does. Decimal and nested
-keys raise ``NotImplementedError`` naming the item that brings them.
+strings of the build's width, as the reference does. A decimal key
+hashes and matches as its int64 (precision <= 18) or its two limbs.
+Nested keys raise ``NotImplementedError`` naming the item that brings
+them (16f).
 
 Host syncs per probe batch: one readback of the candidate total, which
 sizes the output (``host_readback``), plus the "ht" lookup's one read
@@ -51,9 +53,10 @@ from typing import Iterator
 import torch
 
 from auron_tpu_torch import config as cfg
-from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
-                                            StringColumn, compact,
-                                            gather_batch, gather_column)
+from auron_tpu_torch.columnar.batch import (Decimal128Column, DeviceBatch,
+                                            PrimitiveColumn, StringColumn,
+                                            compact, gather_batch,
+                                            gather_column)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import (EvalContext, evaluate, infer_dtype,
@@ -79,10 +82,8 @@ JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti", "existence")
 _KEY_TYPES = frozenset({DataType.BOOL, DataType.INT8, DataType.INT16,
                         DataType.INT32, DataType.INT64, DataType.FLOAT32,
                         DataType.FLOAT64, DataType.DATE32,
-                        DataType.TIMESTAMP_US, DataType.STRING})
-
-#: the ROADMAP item that brings keys of a type the port cannot join on
-_KEY_ITEM = {DataType.DECIMAL: "16d"}
+                        DataType.TIMESTAMP_US, DataType.STRING,
+                        DataType.DECIMAL})
 
 
 def _key_hashes(cols, cap: int, live: torch.Tensor,
@@ -200,9 +201,9 @@ class HashJoinOp(PhysicalOp):
                 if dt not in _KEY_TYPES:
                     raise NotImplementedError(
                         f"join key of type {dt.value}: the port joins on "
-                        "bool, integer, float, date, timestamp and string "
-                        "keys; these come with ROADMAP item "
-                        f"{_KEY_ITEM.get(dt, '16f')}")
+                        "bool, integer, float, decimal, date, timestamp "
+                        "and string keys; nested keys come with ROADMAP "
+                        "item 16f")
         if join_type in ("semi", "anti"):
             self._schema = ps
         elif join_type == "existence":
@@ -358,6 +359,11 @@ def _null_column_like(col, cap: int):
         return StringColumn(
             torch.zeros((cap, col.width), dtype=torch.uint8, device=dev),
             torch.zeros(cap, dtype=torch.int32, device=dev),
+            torch.zeros(cap, dtype=torch.bool, device=dev))
+    if isinstance(col, Decimal128Column):
+        return Decimal128Column(
+            torch.zeros(cap, dtype=torch.int64, device=dev),
+            torch.zeros(cap, dtype=torch.int64, device=dev),
             torch.zeros(cap, dtype=torch.bool, device=dev))
     return PrimitiveColumn(torch.zeros(cap, dtype=col.data.dtype, device=dev),
                            torch.zeros(cap, dtype=torch.bool, device=dev))

@@ -1,6 +1,7 @@
 """Sort operator: a full sort, or the first ``fetch`` rows (top-k).
 
-The port of ``auron_tpu.ops.sort`` for primitive and string keys. A stage
+The port of ``auron_tpu.ops.sort`` for primitive, string and decimal
+keys. A stage
 breaker: the operator buffers its partition's batches, concatenates
 them once, normalizes every sort key into order-preserving 64-bit words
 and runs one stable argsort per word, least significant first, then one
@@ -12,6 +13,8 @@ first or last and ascending or descending live in the words themselves:
                    then all bits flipped if negative, else the sign bit
   string         → its zero-padded bytes as big-endian 64-bit words,
                    ceil(width / 8) of them (a prefix sorts first)
+  decimal(p>18)  → two words: the high limb sign-flipped, then the low
+                   limb as unsigned (a narrower decimal is its int64)
   descending     → bitwise NOT of the word
   null rank      → one leading word per key: 0/1 by nulls_first
 
@@ -24,9 +27,9 @@ order, and ``~`` commutes with the XOR, so a descending word stays
 There is no spill: the port has no memory manager yet, so SortOp always
 takes the reference's in-memory branch, and a context that carries a
 memory manager raises ``NotImplementedError``, as AggOp's and the
-exchange's do. Decimal and struct keys raise until those columns are
-ported (ROADMAP items 16d and 16f). The one host sync is the top-k's read of the sorted row
-count, through ``host_readback``.
+exchange's do. Struct keys raise until those columns are ported
+(ROADMAP item 16f). The one host sync is the top-k's read of the sorted
+row count, through ``host_readback``.
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from auron_tpu_torch.columnar.batch import (DeviceBatch, PrimitiveColumn,
-                                            StringColumn, compact,
+from auron_tpu_torch.columnar.batch import (Decimal128Column, DeviceBatch,
+                                            PrimitiveColumn, StringColumn,
+                                            compact,
                                             gather_batch, resize,
                                             unify_column_widths)
 from auron_tpu_torch.columnar.schema import DataType, Schema
@@ -57,7 +61,8 @@ _LOW32 = 0xFFFFFFFF
 _SORTABLE = frozenset({DataType.BOOL, DataType.INT8, DataType.INT16,
                        DataType.INT32, DataType.INT64, DataType.FLOAT32,
                        DataType.FLOAT64, DataType.DATE32,
-                       DataType.TIMESTAMP_US, DataType.STRING})
+                       DataType.TIMESTAMP_US, DataType.STRING,
+                       DataType.DECIMAL})
 
 
 def _uword(u: int) -> int:
@@ -79,11 +84,15 @@ def order_words(col, ascending: bool,
         be = string_be_words(col.chars)
         words = [be[:, i] for i in range(be.shape[1])]
         return words if ascending else [~w for w in words]
+    if isinstance(col, Decimal128Column):
+        # signed 128-bit order: the reference's uint64 words hi ^ 2^63
+        # and lo, whose int64 words are hi and lo ^ 2^63
+        words = [col.hi, col.lo ^ _SIGN]
+        return words if ascending else [~w for w in words]
     if not isinstance(col, PrimitiveColumn):
         raise NotImplementedError(
-            f"sort keys of {type(col).__name__}: the port sorts primitive "
-            "and string columns only (decimal128: ROADMAP item 16d, "
-            "struct: 16f)")
+            f"sort keys of {type(col).__name__}: the port sorts primitive, "
+            "string and decimal columns only (struct: ROADMAP item 16f)")
     d = col.data
     if d.dtype == torch.bool:
         w = d.to(torch.int64) ^ _SIGN
@@ -159,6 +168,10 @@ def _concat_all(batches: list[DeviceBatch]) -> DeviceBatch:
             cols.append(StringColumn(torch.cat([p.chars for p in parts]),
                                      torch.cat([p.lens for p in parts]),
                                      validity))
+        elif isinstance(parts[0], Decimal128Column):
+            cols.append(Decimal128Column(torch.cat([p.hi for p in parts]),
+                                         torch.cat([p.lo for p in parts]),
+                                         validity))
         else:
             cols.append(PrimitiveColumn(torch.cat([p.data for p in parts]),
                                         validity))
@@ -185,8 +198,8 @@ class SortOp(PhysicalOp):
             if dt not in _SORTABLE:
                 raise NotImplementedError(
                     f"sort key of type {dt.value}: the port sorts bool, "
-                    "integer, float, date, timestamp and string keys only "
-                    "(decimal: ROADMAP item 16d; nested: 16f)")
+                    "integer, float, decimal, date, timestamp and string "
+                    "keys only (nested: ROADMAP item 16f)")
 
     @property
     def children(self):

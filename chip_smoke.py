@@ -149,7 +149,10 @@ t. q03 (a co-partitioned join on the item, ``i_category IN (...)``, a
    |v|; q07's rows in order, swaps allowed only between near-ties). Each
    query's time is the CUDA-synchronised wall of its checked run (one
    run), its host syncs per input batch are counted there, and it is
-   profiled once at SF1. Every AggOp's path and reason is checked:
+   profiled once at SF1. q07 runs, is checked and is timed over SF1's
+   tables (a depth cut: at SF10 it took ~164 s of the 1200 s limit;
+   ``--profile-at-sf10`` runs it at SF10). Every AggOp's path and reason
+   is checked:
    ``sort`` (``float_sum_inexact``; ``acc_kind:smin`` for q06) or
    ``hashtable`` (q08, q09). ``cuda_sum_count.launches`` stays 0.
 
@@ -171,13 +174,34 @@ e. q14 (``it/queries.q14_dataframe``: ``initcap``, ``substring_index``
    each card run timed by its checked run, its syncs counted and
    profiled once at SF1. ``cuda_sum_count.launches`` stays 0.
 
+Decimal columns through the same Session, run after phase e over phase
+p's SF10 store_sales files:
+
+d. ``columnar/decimal128.py`` on the card against the same functions on
+   the CPU, bit for bit, over 2^20 seeded 128-bit values and their limb
+   edges (add, sub, mul, cmp, to_float64, and mul_pow10,
+   div_pow10_half_up, div_pow10_trunc and fits_precision at k in {1, 9,
+   10, 18, 19, 38}), with the launches and device time of one mul128
+   and one div_pow10_half_up at k = 38; then q15
+   (``it/queries.q15_dataframe``: decimal(25,2) x decimal(20,0) on the
+   limbs, a top-25 sort on the decimal(38,2) product),
+   ``decimal_money_dataframe`` (narrow and wide sums and averages, wide
+   min and max, a narrow product whose sum moves to the limbs, per
+   store) and ``decimal_price_key_dataframe`` (a decimal(20,2) group key
+   through the hash table, a top-100 sort on it), each checked exactly
+   against its Python ``decimal`` oracle (rows, order and result types),
+   timed by its checked run, its syncs counted, its AggOps' paths held
+   (``sort``/``acc_kind:dsum`` for the money query, ``hashtable`` for the
+   price key), and profiled once at SF1. ``cuda_sum_count.launches``
+   stays 0.
+
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
 store_sales in one batch.
 
 Output: progress lines, then a JSON line of the stage's numbers, the
-pipeline, Session, join, string and expression phases and the
+pipeline, Session, join, string, expression and decimal phases and the
 comparisons, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device":
@@ -2143,7 +2167,9 @@ def phase_strings(dev, pipe: dict, seed: int, root: str,
     """t. q03, q04 and q06-q09 through the Session over phase p's SF10
     files and the customer, item and store tables written beside them:
     each checked against numpy, timed by its checked run, its host syncs
-    counted, and profiled once at SF1 (at SF10 with ``profile_sf10``)."""
+    counted, and profiled once at SF1 (at SF10 with ``profile_sf10``).
+    q07 runs over SF1's tables (at SF10 with ``profile_sf10``): at SF10
+    it took ~164 s, and the script keeps inside its 1200 s limit."""
     from auron_tpu_torch.frontend.session import Session
     from auron_tpu_torch.it import queries as tq
 
@@ -2161,20 +2187,31 @@ def phase_strings(dev, pipe: dict, seed: int, root: str,
            "store_rows": int(pipe["dims"]["store"]["s_store_sk"].size)}
     tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
     prof_tables = tables if profile_sf10 else sf1_data(seed, root)[1]
+    q07_oracle, q07_rows = oracles["q07"], rows
+    if not profile_sf10:
+        drawn = sf1_data(seed, root)[0]
+        q07_oracle = string_oracles(drawn["store_sales"], {
+            n: drawn[n] for n in JOIN_DIMENSIONS})["q07"]
+        q07_rows = drawn["store_sales"]["ss_store_sk"][0].size
     session = Session(device=dev)
     gagg.cuda_sum_count.launches = 0
     for name in STRING_QUERIES:
         make = getattr(tq, f"{name}_dataframe")
+        run_tables, run_rows = tables, rows
         if name == "q07":
-            def verify(t, _s, o=oracles["q07"]):
+            run_tables, run_rows = prof_tables, q07_rows
+
+            def verify(t, _s, o=q07_oracle):
                 return check_q07(t, o)
         else:
             def verify(t, _s, o=oracles[name], n=name):
                 return check_session_result(t, o, n)
         out[name] = run_session_query(
-            name, lambda m=make: m(session, tables), verify, rows,
-            lambda m=make: m(session, prof_tables), timed=False)
+            name, lambda m=make, t=run_tables: m(session, t), verify,
+            run_rows, lambda m=make: m(session, prof_tables), timed=False)
         out[name]["profile_scale"] = PIPE_SCALE if profile_sf10 \
+            else JOIN_CHECK_SCALE
+        out[name]["scale"] = PIPE_SCALE if run_tables is tables \
             else JOIN_CHECK_SCALE
         decisions = agg_decisions(session, make(session, tables))
         out[name]["agg_decisions"] = decisions
@@ -2284,6 +2321,168 @@ def phase_expressions(dev, pipe: dict, seed: int, root: str,
     return out
 
 
+#: 128-bit values phase d holds ``decimal128`` on, card against CPU
+DECIMAL_VALUES = 1 << 20
+
+#: the scales the limb rescales are held at
+DECIMAL_KS = (1, 9, 10, 18, 19, 38)
+
+#: the general path each decimal query's AggOps take, and why
+DECIMAL_PATHS = {"money": ("sort", "acc_kind:dsum"),
+                 "price_key": ("hashtable", "eligible")}
+
+
+def _decimal_limb_ops() -> dict:
+    """name → fn(hi, lo, other_hi, other_lo) of every ``decimal128``
+    function phase d holds, each returning a tuple of tensors."""
+    from auron_tpu_torch.columnar import decimal128 as D
+    ops = {"add128": D.add128, "sub128": D.sub128, "mul128": D.mul128,
+           "cmp128": D.cmp128,
+           "to_float64": lambda h, l, _bh, _bl: (D.to_float64(h, l),)}
+    for k in DECIMAL_KS:
+        ops[f"mul_pow10_{k}"] = lambda h, l, _bh, _bl, k=k: \
+            D.mul_pow10(h, l, k)
+        ops[f"div_pow10_half_up_{k}"] = lambda h, l, _bh, _bl, k=k: \
+            D.div_pow10_half_up(h, l, k)
+        ops[f"div_pow10_trunc_{k}"] = lambda h, l, _bh, _bl, k=k: \
+            D.div_pow10_trunc(h, l, k)
+        ops[f"fits_precision_{k}"] = lambda h, l, _bh, _bl, k=k: \
+            (D.fits_precision(h, l, k),)
+    return ops
+
+
+def decimal128_checks(dev) -> dict:
+    """``columnar/decimal128.py`` on the card against the same functions
+    on the CPU, bit for bit, over ``DECIMAL_VALUES`` seeded 128-bit
+    values (half of them below 10^38 in magnitude, the limb edges first)
+    paired with a shuffle of themselves; then the launches and device
+    time of one ``mul128`` and one ``div_pow10_half_up`` at k = 38 over
+    them."""
+    from auron_tpu_torch.columnar import decimal128 as D
+    n = DECIMAL_VALUES
+    rng = np.random.default_rng(SEED)
+    i64 = np.iinfo(np.int64)
+    hi = rng.integers(i64.min, i64.max, n, dtype=np.int64, endpoint=True)
+    lo = rng.integers(i64.min, i64.max, n, dtype=np.int64, endpoint=True)
+    # below 10^38: |hi| < 10^38 / 2^64 ~ 5.42e18
+    hi[n // 2:] = rng.integers(-(5 * 10 ** 18), 5 * 10 ** 18, n - n // 2)
+    edge = [0, 1, -1, 2 ** 63, -(2 ** 63), 2 ** 64 - 1, 2 ** 64,
+            -(2 ** 64), 10 ** 38 - 1, -(10 ** 38 - 1), 10 ** 18,
+            5 * 10 ** 37, -5 * 10 ** 37 - 1]
+    eh, el, _ = D.limbs_from_ints(edge, len(edge))
+    hi[:len(edge)], lo[:len(edge)] = eh, el
+    perm = rng.permutation(n)
+    host = [torch.from_numpy(a) for a in (hi, lo, hi[perm], lo[perm])]
+    card = [t.to(dev) for t in host]
+    bad, t0 = [], time.perf_counter()
+    ops = _decimal_limb_ops()
+    for name, fn in ops.items():
+        want, got = fn(*host), fn(*card)
+        for w, g in zip(want, got):
+            g = g.cpu()
+            if w.dtype == torch.float64:
+                w, g = w.view(torch.int64), g.view(torch.int64)
+            if not torch.equal(w, g):
+                bad.append(name)
+    check(not bad, f"decimal128: the card's limbs are the CPU's: {bad}")
+    check_s = time.perf_counter() - t0
+    prof = {}
+    for name in ("mul128", "div_pow10_half_up_38"):
+        res = device_profile(lambda fn=ops[name]: fn(*card), iters=5, top=3,
+                             host_ops=False)
+        prof[name] = {k: res[k] for k in ("wall_ms", "device_ms",
+                                          "busy_share", "launches_per_call")}
+    out = {"values": n, "functions": len(ops), "check_s": check_s,
+           "profile": prof}
+    log("decimal128 on the card: " + json.dumps(out))
+    return out
+
+
+def decimal_oracles(cols: dict) -> dict:
+    """The decimal queries' oracles (``it/queries.py``, Python's
+    ``decimal`` over exact integer sums) on the generated columns, as
+    lists of rows."""
+    import pandas as pd
+    import pyarrow as pa
+    from auron_tpu_torch.it import queries as tq
+    frame = pd.DataFrame({c: np.where(v, d, np.nan) if not v.all() else d
+                          for c, (d, v) in cols.items()})
+    small = {"store_sales": frame[frame.ss_item_sk < 50]}
+    full = {"store_sales": frame}
+
+    def rows(df):
+        return pa.Table.from_pandas(df.reset_index(drop=True),
+                                    preserve_index=False).to_pylist()
+
+    return {"q15": rows(tq._q15_oracle(small)),
+            "money": rows(tq._decimal_money_oracle(full)),
+            "price_key": rows(tq._decimal_price_key_oracle(full))}
+
+
+def phase_decimals(dev, pipe: dict, seed: int, root: str,
+                   profile_sf10: bool) -> dict:
+    """d. ``decimal128`` card against CPU; then q15, the decimal money
+    aggregates and the wide decimal group key through the Session over
+    phase p's SF10 files, each checked exactly against its Python
+    ``decimal`` oracle (rows, order and result types), timed by its
+    checked run, its syncs counted, its AggOps' paths held, and profiled
+    once at SF1 (at SF10 with ``profile_sf10``)."""
+    import pyarrow as pa
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+
+    t_phase = time.perf_counter()
+    check(pipe["files"] is not None,
+          "the decimal phase reads parquet: pyarrow imports")
+    out = {"decimal128": decimal128_checks(dev)}
+    cols = pipe["cols"]
+    rows = cols["ss_store_sk"][0].size
+    t0 = time.perf_counter()
+    oracles = decimal_oracles(cols)
+    out["oracle_s"] = time.perf_counter() - t0
+    tables = {"store_sales": pipe["files"]}
+    prof_tables = tables if profile_sf10 else \
+        {"store_sales": sf1_data(seed, root)[1]["store_sales"]}
+    session = Session(device=dev)
+    gagg.cuda_sum_count.launches = 0
+    types = {"q15": {"rev_dec": (38, 2)},
+             "money": tq.DECIMAL_MONEY_TYPES,
+             "price_key": {"price_key": (20, 2)}}
+    makers = {"q15": tq.q15_dataframe,
+              "money": tq.decimal_money_dataframe,
+              "price_key": tq.decimal_price_key_dataframe}
+    for name, make in makers.items():
+        def verify(t, _s, name=name):
+            for col, (p, sc) in types[name].items():
+                check(t.schema.field(col).type == pa.decimal128(p, sc),
+                      f"decimals.{name}: {col} is decimal({p},{sc})")
+            got = t.to_pylist()
+            check(got == oracles[name],
+                  f"decimals.{name}: the rows, in order, are the decimal "
+                  f"oracle's ({len(got)} against {len(oracles[name])})")
+            return len(got)
+
+        out[name] = run_session_query(
+            f"decimals.{name}", lambda m=make: m(session, tables), verify,
+            rows, lambda m=make: m(session, prof_tables), timed=False)
+        out[name]["profile_scale"] = PIPE_SCALE if profile_sf10 \
+            else JOIN_CHECK_SCALE
+        del out[name]["table"]
+        if name in DECIMAL_PATHS:
+            decisions = agg_decisions(session, make(session, tables))
+            out[name]["agg_decisions"] = decisions
+            want = DECIMAL_PATHS[name]
+            check(bool(decisions) and all(
+                (d["backend"], d["reason"]) == want for d in decisions),
+                f"decimals.{name}: every AggOp takes {want}: {decisions}")
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    check(out["cuda_sum_count_launches"] == 0,
+          "no cuda_dense_sum_count launch on the decimal path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"decimal phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -2313,6 +2512,8 @@ def main() -> int:
                                 args.profile_at_sf10)
         expressions = phase_expressions(dev, pipe, args.seed, root,
                                         args.profile_at_sf10)
+        decimals = phase_decimals(dev, pipe, args.seed, root,
+                                  args.profile_at_sf10)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del pipe
@@ -2340,7 +2541,8 @@ def main() -> int:
             "session": session["cuda_sum_count_launches"],
             "joins": joins["cuda_sum_count_launches"],
             "strings": strings["cuda_sum_count_launches"],
-            "expressions": expressions["cuda_sum_count_launches"]},
+            "expressions": expressions["cuda_sum_count_launches"],
+            "decimals": decimals["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -2360,6 +2562,7 @@ def main() -> int:
     report = {"build_s": build_s, "stages": other["stages"],
               "pipeline": pipeline, "session": session, "joins": joins,
               "strings": strings, "expressions": expressions,
+              "decimals": decimals,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

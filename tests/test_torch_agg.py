@@ -8,6 +8,11 @@ forces the float sums onto the table) and the dense path (a
 ``key_domain`` hint; the reference runs its Pallas kernel through the
 interpreter, the port the CUDA kernel's plain version).
 
+Decimal aggregates (narrow and wide sums, averages, min, max, first and
+count; a wide sum that overflows decimal(38) nulls its group) run on the
+sort and hash paths, complete and partial → final, grouped by an int64
+or a wide decimal key, and give the reference's rows exactly.
+
 Tolerances: keys, counts, integer sums, min, max, first, null masks and
 the row order are identical; float64 sums and averages agree within
 1e-12 of the group's sum of |v|; on the dense path, whose float sums
@@ -476,3 +481,152 @@ def test_first_of_a_null_row_matches_reference(fn):
     got = _run(PORT, plan(PORT), 1, _conf(PORT, "sort"))
     assert got.to_pylist() == want.to_pylist() == [
         {"k": 1, "f": 0}, {"k": 2, "f": None}]
+
+
+# ---------------------------------------------------------------------------
+# decimals
+# ---------------------------------------------------------------------------
+
+import decimal as _pydec
+
+#: (name, precision, scale, magnitude bound of the unscaled values)
+_DEC_COLS = [("n", 7, 2, 10 ** 7), ("m", 16, 2, 10 ** 16),
+             ("w", 30, 4, 10 ** 30), ("o", 38, 0, 10 ** 38)]
+
+
+def _dec_data(rows=512, batch=64, keys=40, seed=5):
+    """Partitions of record batches: k int64 (with nulls), a wide
+    decimal key kd = k * 10^20 + 1 as decimal(25, 2), and the decimal
+    columns of ``_DEC_COLS`` with nulls; ``o`` holds values near 10^38,
+    so some groups' sums overflow decimal(38, 0)."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, keys, rows)
+    kv = rng.random(rows) > 0.03
+    cols = {"k": pa.array(k, pa.int64(), mask=~kv),
+            "kd": pa.array([_pydec.Decimal(int(x) * 10 ** 20 + 1).scaleb(-2)
+                            if ok else None for x, ok in zip(k, kv)],
+                           pa.decimal128(25, 2))}
+    for name, p, sc, bound in _DEC_COLS:
+        big = name == "o"
+        vals = [int(rng.integers(10 ** 17, 10 ** 18)) * 10 ** 20
+                if big else int(rng.integers(0, min(bound, 10 ** 18)))
+                * (bound // min(bound, 10 ** 18)) // 7 for _ in range(rows)]
+        vals = [min(v, bound - 1) * (1 if rng.random() < 0.6 else -1)
+                for v in vals]
+        ok = rng.random(rows) > 0.1
+        with _pydec.localcontext() as ctx:
+            ctx.prec = 60
+            cols[name] = pa.array(
+                [_pydec.Decimal(v).scaleb(-sc) if o else None
+                 for v, o in zip(vals, ok)], pa.decimal128(p, sc))
+    table = pa.table(cols)
+    rbs = table.to_batches(max_chunksize=batch)
+    half = len(rbs) // 2
+    return [rbs[:half], rbs[half:]]
+
+
+#: the aggregates held on each column: every one on the narrow n and the
+#: wide w; on m (p + 4 > 18) the sum and the average that move to the
+#: limbs; on o the sum that overflows
+_DEC_FNS = {"n": ("sum", "avg", "min", "max", "first", "count"),
+            "m": ("sum", "avg"),
+            "w": ("sum", "avg", "min", "max", "first", "count"),
+            "o": ("sum",)}
+
+
+def _dec_aggs(ns, columns):
+    C = ns.ir.ColumnRef
+    names = ["k", "kd"] + [c[0] for c in _DEC_COLS]
+    out = [ns.ir.AggFunction(fn, C(names.index(c)))
+           for c in columns for fn in _DEC_FNS[c]]
+    return out + [ns.ir.AggFunction("count_star", None)]
+
+
+def _dec_plan(ns, parts, mode, key, columns):
+    C = ns.ir.ColumnRef
+    aggs = _dec_aggs(ns, columns)
+    kw = dict(group_names=["g"], agg_names=[f"a{i}" for i in
+                                            range(len(aggs))])
+    groups = [C(0 if key == "int64" else 1)]
+    if mode == "complete":
+        return ns.Agg(_scan(ns, [[b for p in parts for b in p]], 64),
+                      groups, aggs, mode="complete", **kw), 1
+    partial = ns.Agg(_scan(ns, parts, 64), groups, aggs, mode="partial",
+                     **kw)
+    ex = ns.Shuffle(partial, ns.Hash((C(0),), 2), input_partitions=2)
+    return ns.Agg(ex, [C(0)], [ns.ir.AggFunction(a.fn) for a in aggs],
+                  mode="final", **kw), 2
+
+
+DEC_CASES = [(mode, path, key, cols)
+             for mode in ("complete", "two_phase")
+             for path, key, cols in (
+                 ("sort", "int64", ("n", "m", "w", "o")),
+                 ("sort", "decimal", ("w",)),
+                 ("hash", "int64", ("n",)),
+                 ("hash", "decimal", ("n",)))]
+
+
+@pytest.mark.parametrize("mode,path,key,cols", DEC_CASES,
+                         ids=[f"{p}-{m}-{k}-{''.join(c)}"
+                              for m, p, k, c in DEC_CASES])
+def test_decimal_aggregates_match_reference(mode, path, key, cols):
+    parts = _dec_data()
+    ref_op, n = _dec_plan(REF, parts, mode, key, cols)
+    port_op, _ = _dec_plan(PORT, parts, mode, key, cols)
+    assert port_op.schema() == port_op.schema()
+    for rf, tf in zip(ref_op.schema(), port_op.schema()):
+        assert (tf.dtype.value, tf.precision, tf.scale) == \
+            (rf.dtype.value, rf.precision, rf.scale), rf.name
+    want = _run(REF, ref_op, n, _conf(REF, path))
+    metrics = {}
+    got = _run(PORT, port_op, n, _conf(PORT, path), metrics)
+    assert want.num_rows > 20
+    assert got.schema == want.schema
+    assert got.to_pylist() == want.to_pylist()
+    agg = metrics["agg"].snapshot()
+    assert agg.get(f"dispatch_{'hashtable' if path == 'hash' else 'sort'}",
+                   0) >= 1, agg
+    if "o" in cols:   # sum(o) overflows decimal(38, 0) in some groups
+        i = sum(len(_DEC_FNS[c]) for c in cols[:cols.index("o")])
+        sums = got[f"a{i}"].to_pylist()
+        assert any(x is None for x in sums) and any(x is not None
+                                                     for x in sums)
+
+
+def test_decimal_partial_state_matches_reference():
+    """The partial state rows (limb sums at the input scale, the count
+    carrying avg's result type, neutral-filled min/max) and the partial
+    schema's (precision, scale) per field."""
+    parts = _dec_data()
+    flat = [[b for p in parts for b in p]]
+
+    def partial(ns):
+        aggs = _dec_aggs(ns, ("n", "m", "w"))
+        return ns.Agg(_scan(ns, flat, 64), [ns.ir.ColumnRef(0)], aggs,
+                      mode="partial", group_names=["g"],
+                      agg_names=[f"a{i}" for i in range(len(aggs))])
+
+    ref_op, port_op = partial(REF), partial(PORT)
+    for rf, tf in zip(ref_op.schema(), port_op.schema()):
+        assert (tf.name, tf.dtype.value, tf.precision, tf.scale) == \
+            (rf.name, rf.dtype.value, rf.precision, rf.scale)
+    want = _run(REF, ref_op, 1, _conf(REF, "sort"))
+    got = _run(PORT, port_op, 1, _conf(PORT, "sort"))
+    assert got.schema == want.schema
+    assert got.to_pylist() == want.to_pylist()
+
+
+def test_decimal_aggregates_refuse_as_the_reference_does():
+    """The reference's plan-time refusals of a wide argument, word for
+    word."""
+    schema = pa.schema([("k", pa.int64()), ("w", pa.decimal128(30, 2))])
+    scan = TMem([[]], tbridge.schema_from_arrow(schema), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"sum DISTINCT over decimal\(p=30>18\)"):
+        TAgg(scan, [tir.ColumnRef(0)],
+             [tir.AggFunction("sum", tir.ColumnRef(1), distinct=True)])
+    with pytest.raises(NotImplementedError,
+                       match=r"bloom_filter over decimal\(p=30>18\)"):
+        TAgg(scan, [tir.ColumnRef(0)],
+             [tir.AggFunction("bloom_filter", tir.ColumnRef(1))])

@@ -12,7 +12,6 @@ family within ``ULP_BOUND`` units in the last place. Also:
   ``functions.py``, ``fn_strings.py`` and ``fn_dates.py`` registries;
   every other reference name raises ``NotImplementedError`` naming
   ROADMAP item 16f (arrays, maps, structs) or 17b (crypto, json, regex);
-  decimal casts name 16d;
 - cube roots (``cbrt(64)`` is the reference's 3.9999999999999996) and
   the bounded family's special values are exact; a subnormal input
   keeps its IEEE value in the port where XLA's CPU backend flushes it
@@ -174,10 +173,13 @@ def test_later_names_raise_naming_their_item(name, batches):
 
 
 def test_decimal_casts_and_list_access_raise(batches):
-    _jb, _js, tb, ts = batches
+    """Casts to decimal(0, 0) evaluate as the reference's (the decimal
+    cast matrix is ``test_torch_eval.py``'s); a list access raises
+    naming 16f."""
     for spec in (("cast", c("s"), "DECIMAL"), ("cast", c("i64"), "DECIMAL")):
-        with pytest.raises(NotImplementedError, match="16d"):
-            teval.evaluate(cases.build(spec, tir, TDT), tb, ts)
+        want, got = cases.eval_both(spec, batches)
+        cases.assert_same(want, got, 0, repr(spec))
+    _jb, _js, tb, ts = batches
     with pytest.raises(NotImplementedError, match="16f"):
         teval.evaluate(tir.GetIndexedField(tir.ScalarFunction(
             "array", (tir.ColumnRef(2),)), 0), tb, ts)

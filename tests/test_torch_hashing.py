@@ -5,7 +5,11 @@ Edge values of every primitive type the port hashes (0, ±1, the int32
 and int64 extremes, signed zeros, NaN, infinities, subnormals), with
 nulls, one column at a time and chained across columns; the word hashes
 with a tensor of running hashes as the seed; and the hash shuffle's
-partition ids (murmur3 seed 42, pmod) on the same values.
+partition ids (murmur3 seed 42, pmod) on the same values. Decimals:
+a wide column hashes its low then its high limb (the reference's limb
+pair, not Spark's bytes), a narrow one its int64, chained with other
+columns, and the partition ids over both equal the reference's; key
+equality (``adjacent_eq``, ``pairwise_eq``) compares both limbs.
 """
 
 import numpy as np
@@ -180,3 +184,95 @@ def test_hash_partition_ids_match_reference(num_partitions):
                     num_partitions).partition_ids(tbatch, tschema).numpy()
         np.testing.assert_array_equal(got, want)
         assert got.min() >= 0 and got.max() < num_partitions
+
+
+# ---------------------------------------------------------------------------
+# decimals
+# ---------------------------------------------------------------------------
+
+from auron_tpu.columnar.decimal128 import Decimal128Column as JDec
+from auron_tpu_torch.columnar import decimal128 as D
+
+_DEC_INTS = [0, 1, -1, 2 ** 63, -(2 ** 63), 2 ** 64 - 1, 2 ** 64,
+             10 ** 38 - 1, -(10 ** 38 - 1), 10 ** 18, -(10 ** 18), 12345]
+
+
+def _dec_limbs(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    vals = _DEC_INTS + [int(rng.integers(-10 ** 18, 10 ** 18))
+                        * int(rng.integers(1, 10 ** 18))
+                        for _ in range(n - len(_DEC_INTS))]
+    hi, lo, _v = D.limbs_from_ints(vals, n)
+    return hi, lo
+
+
+def _dec_cols(n, seed):
+    hi, lo = _dec_limbs(n, seed)
+    v = _valid(n, seed)
+    return (JDec(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(v)),
+            D.Decimal128Column(torch.from_numpy(hi), torch.from_numpy(lo),
+                               torch.from_numpy(v)))
+
+
+@pytest.mark.parametrize("hash_name", ["xxhash64", "murmur3"])
+def test_decimal_hashes_match_reference(hash_name):
+    """A wide column alone and chained with an int64 (a narrow decimal's
+    payload) and a float column."""
+    n = 64
+    jd, td = _dec_cols(n, 5)
+    k, f = EDGE["int64"], EDGE["float64"]
+    extra = [(np.resize(k, n), _valid(n, 6)), (np.resize(f, n), _valid(n, 7))]
+    jextra = [JCol(jnp.asarray(a), jnp.asarray(v)) for a, v in extra]
+    textra = [TCol(torch.from_numpy(a.copy()), torch.from_numpy(v))
+              for a, v in extra]
+    jfn = getattr(jh, f"{hash_name}_columns")
+    tfn = getattr(th, f"{hash_name}_columns")
+    for jcols, tcols in (([jd], [td]), ([jextra[0], jd, jextra[1]],
+                                        [textra[0], td, textra[1]])):
+        want = np.asarray(jfn(jcols, n))
+        np.testing.assert_array_equal(tfn(tcols, n).numpy(), want)
+
+
+def test_decimal_key_equality_matches_reference():
+    n = 32
+    hi, lo = _dec_limbs(n, 8)
+    hi[1::2], lo[1::2] = hi[::2], lo[::2]        # equal neighbours
+    lo[3] ^= 1                                   # differ in lo only
+    hi[5] += 1                                   # differ in hi only
+    v = _valid(n, 9)
+    v[6:8] = False                               # null == null
+    jd = JDec(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(v))
+    td = D.Decimal128Column(torch.from_numpy(hi), torch.from_numpy(lo),
+                            torch.from_numpy(v))
+    np.testing.assert_array_equal(th.adjacent_eq(td).numpy(),
+                                  np.asarray(jh.adjacent_eq(jd)))
+    pi = np.random.default_rng(1).integers(0, n, 64)
+    bi = np.random.default_rng(2).integers(0, n, 64)
+    want = jh.pairwise_eq(jd, jnp.asarray(pi), jd, jnp.asarray(bi))
+    got = th.pairwise_eq(td, torch.from_numpy(pi), td, torch.from_numpy(bi))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("num_partitions", [1, 4, 200])
+def test_decimal_hash_partition_ids_match_reference(num_partitions):
+    """A decimal(30,2) key (limbs) and a decimal(12,2) key (int64),
+    alone and together."""
+    n = 512
+    hi, lo = _dec_limbs(n, num_partitions)
+    small = np.random.default_rng(3).integers(-10 ** 12, 10 ** 12, n)
+    vw, vn = _valid(n, 11), _valid(n, 12)
+    jschema = JSchema((JField("w", JType.DECIMAL, True, 30, 2),
+                       JField("n", JType.DECIMAL, True, 12, 2)))
+    tschema = TSchema((TField("w", TType.DECIMAL, True, 30, 2),
+                       TField("n", TType.DECIMAL, True, 12, 2)))
+    jbatch = JBatch((JDec(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vw)),
+                     JCol(jnp.asarray(small), jnp.asarray(vn))),
+                    jnp.asarray(n, jnp.int32))
+    tbatch = batch_from_numpy([(hi, lo, vw), (small, vn)], n, "cpu")
+    for keys in ([0], [1], [0, 1]):
+        want = np.asarray(JHash(tuple(jir.ColumnRef(i) for i in keys),
+                                num_partitions).partition_ids(jbatch,
+                                                              jschema))
+        got = THash(tuple(tir.ColumnRef(i) for i in keys),
+                    num_partitions).partition_ids(tbatch, tschema).numpy()
+        np.testing.assert_array_equal(got, want)

@@ -8,6 +8,9 @@ Tolerances: claims, slots, resolved rows, slot order, stored keys,
 group validity, exported hash order and hashes, join-index payloads and
 every integer, min, max, first, or and count accumulator are identical;
 float64 sums agree within a relative 1e-12 of the key's sum of |v|.
+Decimal keys: a wide column's three words (validity, high limb, low
+limb) and hashes, and a ``HashAggState`` keyed on a wide and a narrow
+decimal (slots, stored limbs, export order) are the reference's.
 """
 
 import numpy as np
@@ -400,3 +403,88 @@ def test_join_index_matches_reference_and_searchsorted(rounds):
     cnt = np.searchsorted(h_sorted, probe, "right") - left
     np.testing.assert_array_equal(g_cnt.numpy(), cnt)
     np.testing.assert_array_equal(g_lo.numpy(), np.where(cnt > 0, left, 0))
+
+
+# ---------------------------------------------------------------------------
+# decimal keys
+# ---------------------------------------------------------------------------
+
+from auron_tpu.columnar.decimal128 import Decimal128Column as JDec
+from auron_tpu_torch.columnar import decimal128 as D
+
+
+def _dec_key_cols(n: int, seed: int, pool: int):
+    """A wide key drawn from ``pool`` 128-bit values (ties, the ±2^63 and
+    2^64 - 1 limb edges, nulls) and a narrow int64 key."""
+    rng = np.random.default_rng(seed)
+    base = [0, -1, 2 ** 63, -(2 ** 63), 2 ** 64 - 1, 10 ** 38 - 1,
+            -(10 ** 38 - 1), 2 ** 64] + [
+        int(x) * 10 ** 20 + int(y) for x, y in zip(
+            rng.integers(-10 ** 9, 10 ** 9, pool),
+            rng.integers(-10 ** 9, 10 ** 9, pool))]
+    vals = [base[i] for i in rng.integers(0, len(base), n)]
+    hi, lo, _ = D.limbs_from_ints(vals, n)
+    hv = rng.random(n) >= 0.1
+    small = rng.integers(-3, 3, n)
+    sv = rng.random(n) >= 0.1
+    j = (JDec(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(hv)),
+         JCol(jnp.asarray(small), jnp.asarray(sv)))
+    t = (D.Decimal128Column(torch.from_numpy(hi), torch.from_numpy(lo),
+                            torch.from_numpy(hv)),
+         TCol(torch.from_numpy(small), torch.from_numpy(sv)))
+    return j, t
+
+
+def test_decimal_key_words_and_hashes_identical():
+    jc, tc = _dec_key_cols(64, 1, 8)
+    assert tcore.key_meta(tc) == jcore.key_meta(jc) == (("dec",),
+                                                        ("prim", "int64"))
+    np.testing.assert_array_equal(
+        tcore.key_words(tc, tcore.key_meta(tc)).numpy().T,
+        _i64(jcore.key_words(jc, jcore.key_meta(jc))))
+    np.testing.assert_array_equal(tagg._hashes(tc, 64).numpy(),
+                                  _i64(jagg._hashes(jc, 64)))
+
+
+@pytest.mark.parametrize("pool", [12, 400])
+def test_decimal_keyed_hash_agg_state_matches_reference(pool):
+    """Batches of 64 rows keyed on (wide decimal, int64) into a table
+    from 16 slots: the table grows; slots, stored keys, export order and
+    the sum/count/min accumulators equal the reference's."""
+    n, per = 512, 64
+    kinds = ("sum", "sum", "min")
+    js = jagg.HashAggState(kinds, initial_capacity=16)
+    ts = tagg.HashAggState(kinds, initial_capacity=16)
+    rng = np.random.default_rng(pool)
+    values = rng.integers(-1000, 1000, n)
+    ok = rng.random(n) >= 0.2
+    jall, tall = _dec_key_cols(n, pool, pool)
+    live_all = _live(n, per)
+    for lo in range(0, n, per):
+        sl = slice(lo, lo + per)
+        jk = (JDec(jall[0].hi[sl], jall[0].lo[sl], jall[0].validity[sl]),
+              JCol(jall[1].data[sl], jall[1].validity[sl]))
+        tk = (D.Decimal128Column(tall[0].hi[sl], tall[0].lo[sl],
+                                 tall[0].validity[sl]),
+              TCol(tall[1].data[sl], tall[1].validity[sl]))
+        contribs = [np.where(ok[sl], values[sl], 0),
+                    ok[sl].astype(np.int64),
+                    np.where(ok[sl], values[sl], I64.max)]
+        live = live_all[sl]
+        js.update(jk, [jnp.asarray(c) for c in contribs], jnp.asarray(live))
+        ts.update(tk, [torch.from_numpy(c) for c in contribs],
+                  torch.from_numpy(live))
+    assert (ts.cap, ts.count) == (js.cap, js.count)
+    assert ts.cap > 16
+    wcols, waccs, wng, wcap, wh = js.to_sorted_table()
+    gcols, gaccs, gng, gcap, gh = ts.to_sorted_table()
+    assert int(gng) == int(wng) and gcap == wcap
+    np.testing.assert_array_equal(gh.numpy(), _i64(wh))
+    np.testing.assert_array_equal(gcols[0].hi.numpy(), np.asarray(wcols[0].hi))
+    np.testing.assert_array_equal(gcols[0].lo.numpy(), np.asarray(wcols[0].lo))
+    np.testing.assert_array_equal(gcols[0].validity.numpy(),
+                                  np.asarray(wcols[0].validity))
+    np.testing.assert_array_equal(gcols[1].data.numpy(),
+                                  np.asarray(wcols[1].data))
+    for g, w in zip(gaccs, waccs):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

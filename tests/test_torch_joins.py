@@ -6,7 +6,9 @@ The same seeded numpy batches go to both packages' ``HashJoinOp``:
 - the 7 join types, with ``auron.hashtable.enabled`` on (the hash-run
   index, "ht") and off (two binary searches, "sorted");
 - int64 keys with nulls and duplicate build keys; float64 keys with
-  NaN, -0.0 and 0.0; two keys (int64 and int32); one probe batch and
+  NaN, -0.0 and 0.0; two keys (int64 and int32); a wide decimal(25,2)
+  key (two limbs, values that share a limb) and a narrow decimal(12,2)
+  key with an int64 beside it; one probe batch and
   three (one of them empty); a build side of two batches (concatenated)
   and one with no batch; a probe side whose only batch has no rows.
 
@@ -32,6 +34,7 @@ import jax.numpy as jnp
 from auron_tpu import config as rcfg
 from auron_tpu.columnar.batch import DeviceBatch as JBatch
 from auron_tpu.columnar.batch import PrimitiveColumn as JCol
+from auron_tpu.columnar.decimal128 import Decimal128Column as JDec
 from auron_tpu.columnar.schema import DataType as JDT
 from auron_tpu.columnar.schema import Field as JField
 from auron_tpu.columnar.schema import Schema as JSchema
@@ -43,6 +46,7 @@ from auron_tpu.ops.base import ExecContext as RCtx
 from auron_tpu.ops.joins import HashJoinOp as RJoin
 from auron_tpu.parallel.exchange import BroadcastExchangeOp as RBroadcast
 from auron_tpu_torch import config as tcfg
+from auron_tpu_torch.columnar import decimal128 as D
 from auron_tpu_torch.columnar.batch import PrimitiveColumn as TCol
 from auron_tpu_torch.columnar.batch import batch_from_numpy
 from auron_tpu_torch.columnar.schema import DataType as TDT
@@ -85,12 +89,28 @@ def _one_torch_thread():
 #: per key case: the key columns' names and dtypes
 KEYS = {"int64": (("k", "int64"),),
         "float64": (("k", "float64"),),
-        "two_keys": (("k", "int64"), ("j", "int32"))}
+        "two_keys": (("k", "int64"), ("j", "int32")),
+        "dec_wide": (("k", "dec25"),),
+        "dec_narrow": (("k", "dec12"), ("j", "int64"))}
+
+#: decimal key types: (precision, scale)
+_DEC_KEYS = {"dec25": (25, 2), "dec12": (12, 2)}
+
+#: wide key values: pairs that share the high or the low limb, the
+#: limb edges, negatives
+_WIDE_POOL = [2 ** 64 - 1, 2 ** 64, -(2 ** 64), -1, 10 ** 24 + 3,
+              10 ** 24 + 2 ** 64 + 3, -(10 ** 24), 7]
 
 
-def _key_values(dtype: str, n: int, rng, build: bool) -> np.ndarray:
+def _key_values(dtype: str, n: int, rng, build: bool):
     if dtype == "float64":
         return rng.choice([np.nan, -0.0, 0.0, 1.5, 2.5, 3.5], n)
+    if dtype == "dec25":
+        pick = rng.integers(0, len(_WIDE_POOL) if build else 6, n)
+        hi, lo, _ = D.limbs_from_ints([_WIDE_POOL[i] for i in pick], n)
+        return hi, lo
+    if dtype == "dec12":
+        return rng.integers(-3, 8 if build else 6, n) * 10 ** 9 + 1
     # build keys reach past the probe's: some build rows match nothing
     return rng.integers(0, 8 if build else 6, n).astype(dtype)
 
@@ -101,8 +121,11 @@ def _side(case: str, rows: list[int], seed: int, build: bool) -> list:
     rng = np.random.default_rng(seed)
     out = []
     for n in rows:
-        cols = [(_key_values(dt, CAP, rng, build), rng.random(CAP) > 0.2)
-                for _name, dt in KEYS[case]]
+        cols = []
+        for _name, dt in KEYS[case]:
+            v = _key_values(dt, CAP, rng, build)
+            ok = rng.random(CAP) > 0.2
+            cols.append(v + (ok,) if isinstance(v, tuple) else (v, ok))
         payload = (rng.integers(0, 100, CAP).astype(np.int64) if build
                    else rng.normal(size=CAP))
         cols.append((payload, rng.random(CAP) > 0.1))
@@ -111,8 +134,10 @@ def _side(case: str, rows: list[int], seed: int, build: bool) -> list:
 
 
 def _schema(ns, case: str, build: bool):
-    fields = [ns.Field(("b_" if build else "p_") + name,
-                       getattr(ns.DT, dt.upper()))
+    fields = [ns.Field(("b_" if build else "p_") + name, ns.DT.DECIMAL,
+                       True, *_DEC_KEYS[dt]) if dt in _DEC_KEYS
+              else ns.Field(("b_" if build else "p_") + name,
+                            getattr(ns.DT, dt.upper()))
               for name, dt in KEYS[case]]
     fields.append(ns.Field("b_v" if build else "p_v",
                            ns.DT.INT64 if build else ns.DT.FLOAT64))
@@ -121,8 +146,9 @@ def _schema(ns, case: str, build: bool):
 
 def _batches(ns, side: list) -> list:
     if ns is REF:
-        return [JBatch(tuple(JCol(jnp.asarray(d), jnp.asarray(v))
-                             for d, v in cols), jnp.asarray(n, jnp.int32))
+        return [JBatch(tuple(JDec(*map(jnp.asarray, c)) if len(c) == 3
+                             else JCol(*map(jnp.asarray, c)) for c in cols),
+                       jnp.asarray(n, jnp.int32))
                 for cols, n in side]
     return [batch_from_numpy(cols, n, "cpu") for cols, n in side]
 
@@ -135,6 +161,8 @@ CASES = {
     "two_keys-1_batch": ("two_keys", [14], [16, 10]),
     "empty_build": ("int64", [13, 7], []),
     "empty_probe": ("int64", [0], [11, 14]),
+    "dec_wide-3_batches": ("dec_wide", [13, 0, 16], [11, 14]),
+    "dec_narrow-1_batch": ("dec_narrow", [14], [16, 10]),
 }
 
 
@@ -157,8 +185,9 @@ def _run(ns, op, hashtable: bool):
     out = []
     for b in op.execute(0, ctx):
         n = int(b.num_rows)
-        out.append(([(np.asarray(c.data)[:n], np.asarray(c.validity)[:n])
-                     for c in b.columns], n))
+        out.append(([(np.stack([np.asarray(c.hi), np.asarray(c.lo)], 1)[:n]
+                      if hasattr(c, "hi") else np.asarray(c.data)[:n],
+                      np.asarray(c.validity)[:n]) for c in b.columns], n))
     counters = {k: v for k, v in ctx.metrics_for("hash_join")
                 .snapshot().items() if k.startswith("dispatch_")}
     return out, counters
@@ -272,6 +301,25 @@ def test_pairwise_eq_matches_reference():
                                     False, False]
 
 
+def test_decimal_joins_match_wide_keys_by_both_limbs():
+    """The wide cases are not vacuous: inner pairs keys that share one
+    limb only with nothing, and matches equal keys."""
+    got, _c = _run(PORT, _join(PORT, "dec_wide-3_batches", "inner"), True)
+    pk, bk = (np.concatenate([cols[i][0] for cols, _n in got])
+              for i in (0, 2))
+    assert len(pk) > 0 and (pk == bk).all()
+
+
+def test_null_decimal_columns_match_reference():
+    for p in (12, 25):
+        want = jeval.null_column_for_field(JField("f", JDT.DECIMAL, True, p,
+                                                  2), 5)
+        got = teval.null_column_for_field(TField("f", TDT.DECIMAL, True, p,
+                                                 2), 5, torch.device("cpu"))
+        assert type(got).__name__ == type(want).__name__
+        assert not got.validity.numpy().any()
+
+
 @pytest.mark.parametrize("dtype", ["BOOL", "INT8", "INT32", "INT64",
                                    "FLOAT32", "FLOAT64", "DATE32",
                                    "TIMESTAMP_US"])
@@ -286,12 +334,12 @@ def test_null_column_for_field_matches_reference(dtype):
 
 
 def test_unported_joins_raise():
-    class _Decimals(PhysicalOp):
+    class _Structs(PhysicalOp):
         def schema(self):
-            return TSchema((TField("d", TDT.DECIMAL),))
+            return TSchema((TField("d", TDT.STRUCT),))
 
-    with pytest.raises(NotImplementedError, match="16d"):
-        TJoin(_Decimals(), _Decimals(), [tir.ColumnRef(0)],
+    with pytest.raises(NotImplementedError, match="16f"):
+        TJoin(_Structs(), _Structs(), [tir.ColumnRef(0)],
               [tir.ColumnRef(0)])
     with pytest.raises(ValueError, match="cross"):
         _join(PORT, "int64-1_batch", "cross")

@@ -10,7 +10,11 @@ query, a filtered global limit, a scan of two columns, a rename over a
 coalesce over a limit, and the join queries of ``torch_join_cases``
 (hash joins over hash exchanges and over broadcast exchanges, a
 filtered probe side wrapped in a stage of its own) and the string
-queries of ``torch_string_cases`` (q03, q04 and q06 to q09). The dense key
+queries of ``torch_string_cases`` (q03, q04 and q06 to q09) and the
+decimal queries of ``torch_decimal_cases`` (q15, whose top-k sorts on a
+wide decimal, and the money queries, whose partial aggs the reference
+would fold a combine into: their lone projection is wrapped in a stage
+of its own). The dense key
 domain the planner derives over an in-memory table equals the
 reference's, and is None on a float sum. Nodes the port has no
 operator for raise ``NotImplementedError`` naming them.
@@ -35,11 +39,13 @@ from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir.planner import PlannerContext, plan_from_bytes
 from auron_tpu_torch.runtime.executor import collect
 from tests import torch_join_cases as join_cases
+from tests import torch_decimal_cases as decimal_cases
 from tests import torch_string_cases as string_cases
 
 NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
          "keyless", "store_quantity", "float_sum", "limit", "rename",
-         "pruned") + join_cases.NAMES + string_cases.NAMES
+         "pruned") + join_cases.NAMES + string_cases.NAMES \
+    + decimal_cases.NAMES
 
 #: per operator: the fields it runs on, compared by repr
 FIELDS = {
@@ -123,6 +129,7 @@ def _ref_dataframes(session, tables, table) -> dict:
         F.max(col("ss_quantity")).alias("top"))
     out.update(join_cases.reference_dataframes(session, tables))
     out.update(string_cases.reference_dataframes(session, tables))
+    out.update(decimal_cases.reference_dataframes(session, tables))
     return out
 
 

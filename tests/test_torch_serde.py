@@ -10,8 +10,11 @@
   build side, semi and anti against a broadcast, each join type
   co-partitioned, right and full over a broadcast) and the string
   queries (``torch_string_cases``: q03, q04 and q06 to q09, with an
-  ``IN`` list and string comparisons), the port DataFrame's
+  ``IN`` list and string comparisons) and the decimal queries
+  (``torch_decimal_cases``: q15 and the two money queries, with casts
+  to decimals of both representations), the port DataFrame's
   ``task_bytes()`` equals the reference DataFrame's byte for byte;
+- decimal literals and casts keep their precision and scale;
 - ``InList`` over strings and numbers round-trips to the reference's
   bytes; the nodes of ROADMAP items 17b and 16f raise naming their item;
 - ``DataFrame.partitioning`` equals the reference's after every
@@ -43,11 +46,12 @@ from auron_tpu_torch.ir import auron_pb2 as tpb
 from auron_tpu_torch.ir import serde as tserde
 from auron_tpu_torch.it import queries as tqueries
 from tests import torch_join_cases as join_cases
+from tests import torch_decimal_cases as decimal_cases
 from tests import torch_string_cases as string_cases
 
 NAMES = ("q01", "q02", "q10", "q11", "q12", "q13", "q02_full_sort",
          "keyless", "store_quantity", "pruned") + join_cases.NAMES \
-    + string_cases.NAMES
+    + string_cases.NAMES + decimal_cases.NAMES
 
 
 def _exprs(ir, DT):
@@ -69,6 +73,10 @@ def _exprs(ir, DT):
         ir.InList(C(1, "i_category"), ("Books", "Music", "日本")),
         ir.InList(C(0), (1, 2, 3), True),
         B("<", C(1), L("Electronics", DT.STRING)),
+        L(-123456789012345678, DT.DECIMAL, 30, 4),
+        ir.Cast(C(5), DT.DECIMAL, 25, 2),
+        B("*", ir.Cast(C(5), DT.DECIMAL, 25, 2),
+          ir.Cast(C(4), DT.DECIMAL, 20, 0)),
     ]
 
 
@@ -92,7 +100,7 @@ def _schema(S):
                          S.Field("x", DT.INT32), S.Field("y", DT.STRING)))))
 
 
-@pytest.mark.parametrize("i", range(19))
+@pytest.mark.parametrize("i", range(22))
 def test_expression_round_trip_and_bytes(i):
     got = _exprs(tir, tschema.DataType)[i]
     want = _exprs(rir, rschema.DataType)[i]
@@ -193,6 +201,7 @@ def task_bytes(tmp_path_factory):
                "pruned": _pruned(rs, tables, rdf)}
     ref.update(join_cases.reference_dataframes(rs, tables))
     ref.update(string_cases.reference_dataframes(rs, tables))
+    ref.update(decimal_cases.reference_dataframes(rs, tables))
     port = {"q01": tqueries.q01_dataframe(ts, tables),
             "q02": tqueries.q02_dataframe(ts, tables),
             "q10": tqueries.q10_dataframe(ts, tables),
@@ -205,6 +214,7 @@ def task_bytes(tmp_path_factory):
             "pruned": _pruned(ts, tables, tdf)}
     port.update(join_cases.port_dataframes(ts, tables))
     port.update(string_cases.port_dataframes(ts, tables))
+    port.update(decimal_cases.port_dataframes(ts, tables))
     return {n: (port[n].task_bytes(), ref[n].task_bytes(),
                 port[n], ref[n]) for n in NAMES}
 

@@ -17,7 +17,11 @@ The same seeded numpy columns go to both packages:
   in the reference's order;
 - ``Cast`` through ``evaluate``: int → float64, float → int (truncated;
   NaN, ±inf and out-of-range values null) and bool → int, data, validity
-  and type identical.
+  and type identical;
+- decimal keys: a wide column's two words (its limbs' signed order, the
+  ±2^63 and carry edges, ties) and a narrow one's, in every order; the
+  permutation, SortOp's rows over Arrow decimal columns, and the range
+  bounds and partition ids over a wide key.
 
 There is no tolerance anywhere here: every comparison is exact.
 """
@@ -238,12 +242,12 @@ def test_concat_all_matches_reference():
 
 
 def test_sort_op_refuses_unported_key_types():
-    class _Decimals(PhysicalOp):
+    class _Structs(PhysicalOp):
         def schema(self):
-            return Schema((Field("d", TDT.DECIMAL),))
+            return Schema((Field("d", TDT.STRUCT),))
 
-    with pytest.raises(NotImplementedError, match="decimal"):
-        tsort.SortOp(_Decimals(), [tir.SortOrder(tir.ColumnRef(0))])
+    with pytest.raises(NotImplementedError, match="16f"):
+        tsort.SortOp(_Structs(), [tir.SortOrder(tir.ColumnRef(0))])
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +352,130 @@ def test_cast_evaluates_as_reference(case):
 def test_cast_to_unported_types_raises():
     tb = batch_from_numpy([(np.arange(4), np.ones(4, bool))], 4, "cpu")
     schema = Schema((Field("x", TDT.INT64),))
-    for dt in (TDT.DECIMAL,):
-        with pytest.raises(NotImplementedError, match="cast.*16d"):
+    for dt in (TDT.LIST, TDT.STRUCT):
+        with pytest.raises(NotImplementedError, match=f"cast.*{dt.value}"):
             teval.evaluate(tir.Cast(tir.ColumnRef(0), dt), tb, schema)
+
+
+# ---------------------------------------------------------------------------
+# decimal keys
+# ---------------------------------------------------------------------------
+
+from auron_tpu.columnar.decimal128 import Decimal128Column as JDec
+from auron_tpu_torch.columnar import decimal128 as D
+
+
+def _dec_edge(n: int = 24, seed: int = 5) -> tuple[np.ndarray, np.ndarray]:
+    """Limbs of 128-bit values with their edges: ±(10^38 - 1), ±2^63,
+    2^64 - 1, -1, 0, values that differ in the low limb only, ties."""
+    rng = np.random.default_rng(seed)
+    vals = [10 ** 38 - 1, -(10 ** 38 - 1), 2 ** 63, -(2 ** 63), 2 ** 64 - 1,
+            -1, 0, 1, 2 ** 64, 2 ** 64 + 1, -(2 ** 64), 5, 5, -1]
+    while len(vals) < n:
+        vals.append(int(rng.integers(-3, 4)) * 2 ** 64
+                    + int(rng.integers(-3, 4)))
+    hi, lo, _ = D.limbs_from_ints(vals[:n], n)
+    return hi, lo
+
+
+@pytest.mark.parametrize("asc,nf", ORDERS,
+                         ids=[f"{'asc' if a else 'desc'}-nulls_"
+                              f"{'first' if f else 'last'}"
+                              for a, f in ORDERS])
+def test_decimal_sort_key_words_match_reference(asc, nf):
+    hi, lo = _dec_edge()
+    ok = _valid(hi.size, 1)
+    jc = JDec(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(ok))
+    tc = D.Decimal128Column(torch.from_numpy(hi), torch.from_numpy(lo),
+                            torch.from_numpy(ok))
+    want = rsort.sort_key_words([jc], [(asc, nf)])
+    got = tsort.sort_key_words([tc], [(asc, nf)])
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(tsort.words_to_uint64(g),
+                                      np.asarray(w))
+    for g, w in zip(tsort.order_words(tc, asc, nf),
+                    rsort.order_words(jc, asc, nf)):
+        np.testing.assert_array_equal(tsort.words_to_uint64(g),
+                                      np.asarray(w))
+
+
+def test_decimal_sort_permutation_matches_reference():
+    """A wide key, then a narrow one (int64 payload), over padding."""
+    hi, lo = _dec_edge(64, 7)
+    small = np.random.default_rng(8).integers(-3, 3, 64)
+    v1, v2 = _valid(64, 2), _valid(64, 3)
+    jb = JBatch((JDec(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(v1)),
+                 JCol(jnp.asarray(small), jnp.asarray(v2))),
+                jnp.asarray(57, jnp.int32))
+    tb = batch_from_numpy([(hi, lo, v1), (small, v2)], 57, "cpu")
+    for orders in ([(True, True), (False, False)],
+                   [(False, True), (True, False)]):
+        want = rsort.sort_permutation(jb, list(jb.columns), orders)
+        got = tsort.sort_permutation(tb, list(tb.columns), orders)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _decimal_record_batches(rows: int, batch: int, seed: int = 9):
+    import decimal
+    rng = np.random.default_rng(seed)
+    wide = [decimal.Decimal(int(rng.integers(-3, 4)) * 10 ** 20
+                            + int(rng.integers(-5, 5))).scaleb(-2)
+            for _ in range(rows)]
+    narrow = [decimal.Decimal(int(x)).scaleb(-3)
+              for x in rng.integers(-4, 4, rows)]
+    wv, nv = _valid(rows, seed), _valid(rows, seed + 1)
+    v = rng.integers(-100, 100, rows)
+    return [pa.record_batch({
+        "w": pa.array([x if ok else None for x, ok in
+                       zip(wide[i:i + batch], wv[i:i + batch])],
+                      pa.decimal128(30, 2)),
+        "n": pa.array([x if ok else None for x, ok in
+                       zip(narrow[i:i + batch], nv[i:i + batch])],
+                      pa.decimal128(9, 3)),
+        "v": pa.array(v[i:i + batch], pa.int64())})
+        for i in range(0, rows, batch)]
+
+
+def _dec_orders(ns):
+    C = ns.ir.ColumnRef
+    return [ns.ir.SortOrder(C(0), False, True),
+            ns.ir.SortOrder(C(1), True, False)]
+
+
+@pytest.mark.parametrize("fetch", [None, 7])
+def test_decimal_sort_op_matches_reference(fetch):
+    rbs = _decimal_record_batches(90, 30)
+
+    def plan(ns):
+        scan = ns.Mem([rbs], ns.bridge.schema_from_arrow(rbs[0].schema),
+                      capacity=32)
+        return ns.sort.SortOp(scan, _dec_orders(ns), fetch=fetch)
+
+    want, = _run(REF, plan(REF))
+    got, = _run(PORT, plan(PORT))
+    assert want.num_rows == (fetch or 90)
+    _same_rows(got, want)
+
+
+def test_decimal_range_exchange_matches_reference():
+    """A range exchange keyed on a wide and a narrow decimal samples the
+    reference's bounds (two words for the wide key) and sends each
+    partition the reference's rows in order."""
+    rbs = _decimal_record_batches(300, 50, seed=4)
+    maps = [rbs[m::3] for m in range(3)]
+
+    def plan(ns):
+        scan = ns.Mem(maps, ns.bridge.schema_from_arrow(rbs[0].schema),
+                      capacity=64)
+        part = ns.part.RangePartitioning(tuple(_dec_orders(ns)), 4,
+                                         bounds=())
+        return ns.Shuffle(scan, part, input_partitions=3)
+
+    ref_op, port_op = plan(REF), plan(PORT)
+    want = _run(REF, ref_op, 4)
+    got = _run(PORT, port_op, 4)
+    assert port_op.partitioning.bounds == ref_op.partitioning.bounds
+    assert all(len(b) == 5 for b in port_op.partitioning.bounds)
+    for g, w in zip(got, want):
+        _same_rows(g, w)
