@@ -101,7 +101,7 @@ def _require_ported(col) -> None:
         raise NotImplementedError(
             f"{type(col).__name__}: the port carries primitive, string "
             "and decimal128 columns only (list, map and struct: ROADMAP "
-            "item 16f)")
+            "item 16f-c)")
 
 
 def column_nbytes(col: Column) -> int:

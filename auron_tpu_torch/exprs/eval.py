@@ -911,9 +911,12 @@ def _cast_to_decimal(v: TypedValue, precision: int,
         ok = D.fits_precision(hi, lo, precision)
         return TypedValue(Decimal128Column(hi, lo, validity & ok),
                           DataType.DECIMAL, precision, scale)
-    unscaled = d.to(torch.int64) * (10 ** scale)
-    ok = torch.abs(unscaled) < (10 ** min(precision, 18))
-    return TypedValue(PrimitiveColumn(torch.where(ok, unscaled, 0),
+    # bound the integer before the multiply, so the product cannot wrap
+    # (the reference multiplies first and checks the wrapped product)
+    d = d.to(torch.int64)
+    bound = (10 ** min(precision, 18) - 1) // 10 ** scale
+    ok = (d <= bound) & (d >= -bound)
+    return TypedValue(PrimitiveColumn(torch.where(ok, d, 0) * 10 ** scale,
                                       validity & ok),
                       DataType.DECIMAL, precision, scale)
 

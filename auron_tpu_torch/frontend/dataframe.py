@@ -4,9 +4,12 @@ The port of ``auron_tpu.frontend.dataframe`` for the expressions and
 transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
-query; what the port cannot plan yet (DISTINCT aggregates, windows,
-host functions, the scalar functions of ROADMAP items 16f and 17b)
-raises ``NotImplementedError`` or is absent.
+query; what the port cannot plan yet (DISTINCT aggregates, scalar
+subqueries, host functions, the scalar functions of ROADMAP items 16f
+and 17b) raises ``NotImplementedError`` or is absent. Window functions
+(``DataFrame.window`` with the builders on ``functions``) and grouping
+sets (``expand``, ``grouping_sets``, ``rollup``, ``cube``) build the
+reference's nodes.
 
 Each DataFrame carries the reference's ``partitioning`` provenance, the
 layout its partitions are known to have. It never enters the task
@@ -17,7 +20,8 @@ every transform.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional, Sequence, Union
 
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
@@ -133,6 +137,27 @@ class AggCol:
         return f"{self.fn}({argname})" if argname else self.fn
 
 
+@dataclass
+class WinFn:
+    """One window function for ``DataFrame.window``: the DSL's face of
+    ``WindowFunctionP`` and ``ops.window.WindowFunctionSpec``."""
+
+    kind: str                   # rank_like | offset | agg
+    fn: str
+    arg: Optional[Col] = None
+    offset: int = 1
+    default: Any = None
+    name: Optional[str] = None
+    #: ROWS BETWEEN (lo, hi) for agg functions; None = the default frame
+    frame: Optional[tuple] = None
+
+    def alias(self, name: str) -> "WinFn":
+        return replace(self, name=name)
+
+    def out_name(self, i: int) -> str:
+        return self.name or f"{self.fn}_{i}"
+
+
 def col(name: str) -> Col:
     return Col(name)
 
@@ -220,6 +245,51 @@ class _Functions:
 
     def count_star(self) -> AggCol:
         return AggCol("count_star", None)
+
+    # -- window functions (DataFrame.window) --------------------------------
+
+    def row_number(self) -> WinFn:
+        return WinFn("rank_like", "row_number")
+
+    def rank(self) -> WinFn:
+        return WinFn("rank_like", "rank")
+
+    def dense_rank(self) -> WinFn:
+        return WinFn("rank_like", "dense_rank")
+
+    def percent_rank(self) -> WinFn:
+        return WinFn("rank_like", "percent_rank")
+
+    def cume_dist(self) -> WinFn:
+        return WinFn("rank_like", "cume_dist")
+
+    def ntile(self, n: int) -> WinFn:
+        return WinFn("rank_like", "ntile", offset=n)
+
+    def lead(self, c, offset: int = 1, default=None) -> WinFn:
+        return WinFn("offset", "lead", _wrap(c), offset, default)
+
+    def lag(self, c, offset: int = 1, default=None) -> WinFn:
+        return WinFn("offset", "lag", _wrap(c), offset, default)
+
+    def nth_value(self, c, n: int) -> WinFn:
+        return WinFn("offset", "nth_value", _wrap(c), n)
+
+    def first_value(self, c) -> WinFn:
+        return WinFn("offset", "first_value", _wrap(c))
+
+    def last_value(self, c) -> WinFn:
+        return WinFn("offset", "last_value", _wrap(c))
+
+    def win_agg(self, fn: str, c=None, frame=None) -> WinFn:
+        """An aggregate over the window: ``win_agg("sum", col)``,
+        ``win_agg("count_star")``. The default frame is Spark's
+        (UNBOUNDED PRECEDING..CURRENT ROW with ORDER BY, else the whole
+        partition); ``frame=(lo, hi)`` is ROWS BETWEEN lo..hi in
+        relative rows, negative preceding: ``(-1, 1)`` is a centred
+        moving window."""
+        return WinFn("agg", fn, _wrap(c) if c is not None else None,
+                     frame=tuple(frame) if frame is not None else None)
 
 
 functions = _Functions()
@@ -358,13 +428,84 @@ class DataFrame:
         existing = [col(f.name) for f in self.schema]
         return self.select(*existing, c.alias(name))
 
+    def expand(self, projections: Sequence[Sequence[Col]],
+               names: Sequence[str]) -> "DataFrame":
+        """Emit every projection once per input row (Spark's ExpandExec,
+        which rollup, cube and grouping sets lower to). The first
+        projection types the output, so the most-typed one goes first."""
+        schema = self.schema
+        projs = [[resolve(_wrap(c), schema) for c in p]
+                 for p in projections]
+        node = pb.PlanNode(expand=pb.ExpandNode(
+            child=self.plan,
+            projections=[pb.ExpandNode.Projection(
+                exprs=[serde.expr_to_proto(e) for e in p])
+                for p in projs],
+            names=list(names)))
+        fields = []
+        for e, nm in zip(projs[0], names):
+            dt, p, s = infer_dtype(e, schema)
+            fields.append(Field(nm, dt, True, p, s))
+        return DataFrame(self.session, node, Schema(tuple(fields)),
+                         self.num_partitions, None)
+
+    def grouping_sets(self, keys: Sequence[Union[str, Col]],
+                      sets: Sequence[Sequence[int]]) -> GroupedData:
+        """GROUP BY GROUPING SETS: one copy of the input per set, its
+        grouped-out keys null, tagged with ``spark_grouping_id`` (INT32;
+        bit i set = key i rolled up, the leftmost key the highest bit,
+        Spark's encoding). The id is a group key too, so a natural null
+        key stays apart from a rolled-up one."""
+        kcols = [col(k) if isinstance(k, str) else k for k in keys]
+        schema = self.schema
+        key_names = [k.out_name(f"k{i}") for i, k in enumerate(kcols)]
+        n = len(kcols)
+        pass_names = list(schema.names)
+        out_names = pass_names + [f"{kn}#g" for kn in key_names] \
+            + ["spark_grouping_id"]
+        null_keys = []
+        for k in kcols:
+            dt, p, s = infer_dtype(resolve(k, schema), schema)
+            null_keys.append(Col(ir.Literal(None, dt, p, s)))
+        projections = []
+        for st in sets:
+            inc = set(st)
+            gid = sum(1 << (n - 1 - i) for i in range(n) if i not in inc)
+            projections.append(
+                [col(c) for c in pass_names]
+                + [kcols[i] if i in inc else null_keys[i]
+                   for i in range(n)]
+                + [lit(gid, DataType.INT32)])
+        # the full set goes first: it types the expanded columns
+        projections.sort(key=lambda p: sum(
+            1 for c in p if isinstance(c.node, ir.Literal)
+            and c.node.value is None))
+        expanded = self.expand(projections, out_names)
+        gkeys = [col(f"{kn}#g").alias(kn) for kn in key_names] \
+            + [col("spark_grouping_id")]
+        return GroupedData(expanded, gkeys)
+
+    def rollup(self, *keys: Union[str, Col]) -> GroupedData:
+        """GROUP BY ROLLUP(k1..kn): the n + 1 prefix grouping sets."""
+        n = len(keys)
+        return self.grouping_sets(
+            keys, [list(range(i)) for i in range(n, -1, -1)])
+
+    def cube(self, *keys: Union[str, Col]) -> GroupedData:
+        """GROUP BY CUBE(k1..kn): all 2^n grouping sets."""
+        n = len(keys)
+        sets = []
+        for r in range(n, -1, -1):
+            sets.extend(list(c) for c in itertools.combinations(range(n), r))
+        return self.grouping_sets(keys, sets)
+
     def group_by(self, *keys: Union[str, Col]) -> GroupedData:
         return GroupedData(self, [col(k) if isinstance(k, str) else k
                                   for k in keys])
 
     def _to_sort_orders(self, orders) -> list[ir.SortOrder]:
-        """str/Col/SortCol → resolved ir.SortOrder; a bare column sorts
-        ascending, nulls first."""
+        """str/Col/SortCol → resolved ir.SortOrder (shared by sort and
+        window); a bare column sorts ascending, nulls first."""
         sos = []
         for o in orders:
             if isinstance(o, str):
@@ -374,6 +515,79 @@ class DataFrame:
             sos.append(ir.SortOrder(resolve(o.col, self.schema),
                                     o.ascending, o.nulls_first))
         return sos
+
+    def window(self, funcs: list, partition_by=(), order_by=(),
+               group_limit: Optional[int] = None) -> "DataFrame":
+        """Append one column per window function (WindowNode →
+        ``ops/window.py``). Over several partitions the input is first
+        hash-exchanged on the partition keys (Spark's required
+        distribution for a window); with no partition keys it goes to a
+        single partition."""
+        from auron_tpu_torch.ops.window import (WindowFunctionSpec,
+                                                _result_field)
+        if group_limit is not None and group_limit < 1:
+            raise ValueError(f"group_limit must be >= 1, got {group_limit}")
+        pbs = [col(k) if isinstance(k, str) else k for k in partition_by]
+        sos = self._to_sort_orders(order_by)
+        pb_exprs = [resolve(c, self.schema) for c in pbs]
+        child = self.plan
+        out_partitions = self.num_partitions
+        prov = None
+        if self.num_partitions > 1:
+            if pb_exprs:
+                part = pb.PartitioningP(
+                    kind="hash", num_partitions=self.num_partitions,
+                    hash_keys=[serde.expr_to_proto(e) for e in pb_exprs])
+                prov = ("hash", tuple(c.out_name() for c in pbs),
+                        self.num_partitions)
+            else:
+                part = pb.PartitioningP(kind="single", num_partitions=1)
+                out_partitions = 1
+                prov = ("single",)
+            child = pb.PlanNode(shuffle_writer=pb.ShuffleWriterNode(
+                child=child, partitioning=part,
+                input_partitions=self.num_partitions))
+        # one spec per function: its validation runs before the protos
+        # and the schema are built from it
+        names = [f.out_name(i) for i, f in enumerate(funcs)]
+        specs = []
+        for f in funcs:
+            default = None
+            if f.default is not None:
+                default = resolve(_wrap(f.default), self.schema)
+                if not isinstance(default, ir.Literal):
+                    raise TypeError(
+                        f"{f.fn} default must be a literal, got "
+                        f"{type(default).__name__}")
+            specs.append((WindowFunctionSpec(
+                kind=f.kind, fn=f.fn,
+                arg=resolve(f.arg, self.schema) if f.arg is not None
+                else None, offset=f.offset,
+                default=None if default is None else default.value,
+                frame=f.frame), default))
+        fprotos = []
+        for spec, default in specs:
+            wp = pb.WindowFunctionP(kind=spec.kind, fn=spec.fn)
+            if spec.arg is not None:
+                wp.arg.CopyFrom(serde.expr_to_proto(spec.arg))
+            wp.offset = spec.offset
+            if default is not None:
+                wp.default_value.CopyFrom(
+                    serde.expr_to_proto(default).literal)
+            if spec.frame is not None:
+                wp.frame_lo, wp.frame_hi = spec.frame
+            fprotos.append(wp)
+        node = pb.PlanNode(window=pb.WindowNode(
+            child=child,
+            partition_by=[serde.expr_to_proto(e) for e in pb_exprs],
+            order_by=[serde.sort_order_to_proto(s) for s in sos],
+            functions=fprotos, output_names=names,
+            group_limit=-1 if group_limit is None else group_limit))
+        extra = [_result_field(spec, nm, self.schema)
+                 for (spec, _d), nm in zip(specs, names)]
+        out_schema = Schema(tuple(self.schema.fields) + tuple(extra))
+        return DataFrame(self.session, node, out_schema, out_partitions,
+                         prov)
 
     def sort(self, *orders: Union[str, Col, SortCol],
              limit: Optional[int] = None) -> "DataFrame":

@@ -2,16 +2,17 @@
 
 The port of ``auron_tpu.ir.planner`` for the nodes the port has
 operators for: the parquet, memory and empty-partitions scans, filter,
-project, agg, sort, limit, union, coalesce, rename, the hash join, the
-broadcast exchange and the shuffle writer (hash, round-robin, single
-and range) on its host route. The sort-merge and broadcast joins raise
+project, agg, sort, limit, union, coalesce, rename, window, expand, the
+hash join, the broadcast exchange and the shuffle writer (hash,
+round-robin, single and range) on its host route. The sort-merge and broadcast joins raise
 ``NotImplementedError`` naming the items that bring them, and so does a
 broadcast exchange that publishes its output as a resource; every other
 node raises naming itself. Scans run on the context's device.
 
 After planning, ``fuse_stages`` chains row-local operators into
-``FusedStageOp``s as the reference's pass does. Two of the reference's
-post-planning passes wait: the map-side combine fold
+``FusedStageOp``s as the reference's pass does, a chain stopping
+where the product of its members' fan-outs would pass 16. Two of the
+reference's post-planning passes wait: the map-side combine fold
 (``_fold_combine``, with ``AggOp.build_combine_stage``), so every
 exchange stays unfolded, which gives the same rows; and the mesh
 annotation (``annotate_mesh``), with the mesh. Where the reference
@@ -268,6 +269,39 @@ class PhysicalPlanner:
         from auron_tpu_torch.ops.limit import RenameColumnsOp
         return RenameColumnsOp(self.create_plan(n.child), list(n.names))
 
+    def _plan_window(self, n: pb.WindowNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.window import WindowFunctionSpec, WindowOp
+        fns = []
+        for f in n.functions:
+            default = None
+            if f.HasField("default_value"):
+                default = serde._parse_literal(f.default_value).value
+            fns.append(WindowFunctionSpec(
+                kind=f.kind, fn=f.fn,
+                arg=serde.parse_expr(f.arg) if f.HasField("arg") else None,
+                offset=f.offset if f.HasField("offset") else 1,
+                default=default,
+                frame=((f.frame_lo, f.frame_hi)
+                       if (f.HasField("frame_lo")
+                           or f.HasField("frame_hi")) else None)))
+        return WindowOp(
+            self.create_plan(n.child),
+            partition_by=[serde.parse_expr(e) for e in n.partition_by],
+            order_by=[serde.parse_sort_order(o) for o in n.order_by],
+            functions=fns,
+            output_names=list(n.output_names) or None,
+            group_limit=None if n.group_limit < 0 else (n.group_limit or None),
+        )
+
+    def _plan_expand(self, n: pb.ExpandNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.expand import ExpandOp
+        return ExpandOp(
+            self.create_plan(n.child),
+            [[serde.parse_expr(e) for e in proj.exprs]
+             for proj in n.projections],
+            list(n.names) or None,
+        )
+
     # -- joins --------------------------------------------------------------
 
     def _plan_hash_join(self, n: pb.HashJoinNode) -> PhysicalOp:
@@ -337,6 +371,11 @@ def plan_from_bytes(data: bytes,
 # ---------------------------------------------------------------------------
 # whole-stage fusion pass
 # ---------------------------------------------------------------------------
+
+#: bound on the product of the fan-outs (an expand's projections
+#: multiply the batches of one input batch) that one fused stage unrolls
+_MAX_STAGE_FANOUT = 16
+
 
 def fuse_stages(op: PhysicalOp, config=None) -> PhysicalOp:
     """Whole-stage fusion (ops/fused.py): greedily group maximal chains
@@ -416,10 +455,17 @@ def _fuse(op: PhysicalOp, max_ops: int) -> PhysicalOp:
             op.probe = _wrap_single(op.probe)
         return op
     if op.fusable:
-        # the maximal chain op → … → deepest fusable descendant
+        # the maximal chain op → … → deepest fusable descendant, whose
+        # product of fan-outs stays within _MAX_STAGE_FANOUT
         chain = [op]
-        while len(chain) < max_ops and chain[-1].children[0].fusable:
-            chain.append(chain[-1].children[0])
+        fanout = op.fusion_fanout
+        while len(chain) < max_ops:
+            child = chain[-1].children[0]
+            if not child.fusable \
+                    or fanout * child.fusion_fanout > _MAX_STAGE_FANOUT:
+                break
+            chain.append(child)
+            fanout *= child.fusion_fanout
         # recurse below the stage input, keeping the member links intact
         _replace_children(chain[-1], lambda c: _fuse(c, max_ops))
         if len(chain) >= 2 and any(m.fragment_computes for m in chain):

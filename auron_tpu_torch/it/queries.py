@@ -1,8 +1,9 @@
 """TPC-DS-class integration queries the port can run.
 
-Copies of ``auron_tpu.it.queries``'s q01 to q15, with their oracles
+Copies of ``auron_tpu.it.queries``'s q01 to q16, with their oracles
 (q03, q04 and q06 to q09 group, filter or sort on strings; q15
-multiplies two wide decimals and sorts on the product). Each
+multiplies two wide decimals and sorts on the product; q16 ranks within
+a window). Each
 query runs through the whole front end: DataFrame DSL → protobuf
 TaskDefinition → physical planner → operators (``ShuffleExchangeOp``
 stages and hash joins included).
@@ -19,6 +20,10 @@ More queries of the same shapes:
   leaves rows unmatched on both sides;
 - ``broadcast_outer_dataframe``, the right or full join over a
   broadcast build side whose rows are ``BROADCAST_OUTER_ROWS``;
+- ``rollup_rank_dataframe``, q67's shape: a rollup of (category,
+  brand), then a rank within the category;
+- ``window_sweep_dataframes``, every window function over the joined
+  sales, item and customer tables;
 - ``expression_sweep_dataframe``, a select over the customer or the
   item table that calls every scalar function and expression node the
   port evaluates;
@@ -837,6 +842,216 @@ def expression_sweep_dataframe(s, t, table: str = "customer", dsl=None):
     return (_sweep_customer if table == "customer" else _sweep_item)(df, d)
 
 
+# q16: window functions: rank within the store by revenue (an exchange
+# on the partition keys, the TPC-DS windowed-rank class)
+
+def q16_dataframe(s, t):
+    per_item = (_sales(s, t)
+                .group_by("ss_store_sk", "ss_item_sk")
+                .agg(F.sum(col("ss_sales_price")).alias("rev")))
+    return (per_item
+            .window([F.rank().alias("rnk")],
+                    partition_by=[col("ss_store_sk")],
+                    order_by=[col("rev").desc()])
+            .filter(col("rnk") <= 3)
+            .sort(col("ss_store_sk").asc(), col("rnk").asc(),
+                  col("ss_item_sk").asc()))
+
+
+def _q16_oracle(p):
+    ss = p["store_sales"]
+    g = (ss.groupby(["ss_store_sk", "ss_item_sk"])
+           .agg(rev=("ss_sales_price", "sum")).reset_index())
+    g["rnk"] = g.groupby("ss_store_sk")["rev"] \
+        .rank(method="min", ascending=False).astype("int64")
+    f = g[g.rnk <= 3]
+    return f.sort_values(["ss_store_sk", "rnk", "ss_item_sk"])[
+        ["ss_store_sk", "ss_item_sk", "rev", "rnk"]]
+
+
+# rollup → rank, q67's shape over the port's tables: a broadcast join on
+# the item, a rollup of (category, brand), the top 5 of each category by
+# revenue
+
+ROLLUP_RANK_TOP = 5
+
+
+def rollup_rank_dataframe(s, t, dsl=None):
+    """store_sales ⋈ item (item broadcast), ``amt`` = price × quantity as
+    float64, ``rollup(i_category, i_brand)`` of ``sum(amt)``, ``rank()``
+    within the category by the sum descending, the rows of rank <= 5,
+    sorted by (category, rank, brand). A category's rolled-up row (its
+    brand null, ``spark_grouping_id`` 1) ranks 1 in its category; the
+    grand total (both null, id 3) is the one row of the null category."""
+    d = dsl or PORT_DSL
+    col, F, T = d.col, d.F, d.DataType
+    item = _dim(s, t, "item", ["i_item_sk", "i_category", "i_brand"]) \
+        .select(col("i_item_sk").alias("ss_item_sk"), col("i_category"),
+                col("i_brand"))
+    sales = _sales(s, t).select(
+        col("ss_item_sk"),
+        (col("ss_sales_price") * col("ss_quantity")).cast(T.FLOAT64)
+        .alias("amt"))
+    return (sales.join(item, on="ss_item_sk")
+            .rollup("i_category", "i_brand")
+            .agg(F.sum(col("amt")).alias("total"))
+            .window([F.rank().alias("rk")],
+                    partition_by=[col("i_category")],
+                    order_by=[col("total").desc()])
+            .filter(col("rk") <= ROLLUP_RANK_TOP)
+            .sort(col("i_category").asc(), col("rk").asc(),
+                  col("i_brand").asc()))
+
+
+def _rollup_rank_oracle(p):
+    import pandas as pd
+    ss, it = p["store_sales"], p["item"]
+    j = ss.merge(it, left_on="ss_item_sk", right_on="i_item_sk")
+    j = j.assign(amt=j.ss_sales_price * j.ss_quantity)
+    levels = [
+        j.groupby(["i_category", "i_brand"]).amt.sum().reset_index()
+        .assign(spark_grouping_id=0),
+        j.groupby("i_category").amt.sum().reset_index()
+        .assign(i_brand=None, spark_grouping_id=1),
+        pd.DataFrame({"i_category": [None], "i_brand": [None],
+                      "amt": [j.amt.sum()], "spark_grouping_id": [3]}),
+    ]
+    g = pd.concat(levels, ignore_index=True).rename(columns={"amt": "total"})
+    g["spark_grouping_id"] = g.spark_grouping_id.astype("int32")
+    g["rk"] = g.groupby("i_category", dropna=False)["total"] \
+        .rank(method="min", ascending=False).astype("int64")
+    f = g[g.rk <= ROLLUP_RANK_TOP]
+    f = f.sort_values(["i_category", "rk", "i_brand"],
+                      na_position="first")
+    return f[["i_category", "i_brand", "spark_grouping_id", "total", "rk"]]
+
+
+# the window sweep: every window function over the joined tables
+
+#: a row's identity in the window sweep: unique within a partition, so
+#: no row-level result depends on the order of ties
+WINDOW_SWEEP_ROW = ("ss_sold_date_sk", "ss_customer_sk", "ss_item_sk",
+                    "ss_quantity", "ss_net_profit")
+
+
+def window_sweep_dataframes(s, t) -> dict:
+    """{name: DataFrame}: every function of ``ops.window``'s
+    ``RANK_LIKE``, ``OFFSET_FNS`` and ``AGG_FNS`` over a quarter of the
+    stores' sales joined with item and customer (both broadcast). The
+    values: ``ss_quantity`` (int64), ``vf`` (``ss_net_paid``, float64
+    with nulls, and on a few rows NaN in one category, +inf in another,
+    -inf in that one and a third), ``c_email``
+    (string), ``dn`` (decimal(7,2)) and ``dm`` (decimal(12,2), whose sum
+    moves to the limbs); partition keys ``i_category`` (string),
+    ``ss_store_sk`` or none. A column named ``f_*`` is a float64 sum or
+    average whose rounding depends on the order of its terms; its
+    ``a_*`` twin sums the terms' absolute values over the same frame,
+    the scale of its tolerance.
+
+    - ``peers``: ORDER BY ``ss_quantity`` desc, whose ties share the
+      ranks and the running aggregates;
+    - ``rows``: ORDER BY the row's identity: row numbers, offsets (a
+      string default), ROWS frames ``(-1, 1)`` and ``(-3, 0)``;
+    - ``whole``: no ORDER BY, the store's whole partition;
+    - ``global``: no partition key, the sales of items below 200;
+    - ``group_limit``: the 3 largest profits of each (category, brand);
+    - ``cube``: a cube over (category, quantity, store) of exact
+      aggregates, then ranks within each grouping set."""
+    from auron_tpu_torch.ops.window import AGG_FNS, OFFSET_FNS, RANK_LIKE
+    assert len(RANK_LIKE) + len(OFFSET_FNS) + len(AGG_FNS) == 17
+    nan, inf = float("nan"), float("inf")
+    item = _dim(s, t, "item", ["i_item_sk", "i_category", "i_brand"]) \
+        .select(col("i_item_sk").alias("ss_item_sk"), col("i_category"),
+                col("i_brand"))
+    cust = _dim(s, t, "customer", ["c_customer_sk", "c_email"]) \
+        .select(col("c_customer_sk").alias("ss_customer_sk"),
+                col("c_email"))
+    q, k, cat = col("ss_quantity"), col("ss_item_sk"), col("i_category")
+    # NaN in Music, +inf in Shoes, -inf in Home and Shoes, on a few rows
+    vf = F.if_((q == 19) & (k % 50 == 0) & (cat == "Music"), lit(nan),
+               F.if_((q == 18) & (k % 40 == 0) & (cat == "Shoes"), lit(inf),
+                     F.if_((q == 17) & (k % 45 == 0)
+                           & cat.isin("Home", "Shoes"), lit(-inf),
+                           col("ss_net_paid"))))
+    price = col("ss_sales_price")
+    base = (_sales(s, t).filter(col("ss_store_sk") % 4 == 0)
+            .join(item, on="ss_item_sk").join(cust, on="ss_customer_sk")
+            .select(*[col(c) for c in WINDOW_SWEEP_ROW], col("ss_store_sk"),
+                    cat, col("i_brand"), col("c_email"),
+                    vf.alias("vf"),
+                    price.cast(DataType.DECIMAL, 7, 2).alias("dn"),
+                    price.cast(DataType.DECIMAL, 12, 2).alias("dm")))
+    vf, dn, dm, em = col("vf"), col("dn"), col("dm"), col("c_email")
+    absf = F.abs(vf)
+    row = [col(c).asc() for c in WINDOW_SWEEP_ROW]
+
+    def agg(fn, c=None, frame=None, name=None):
+        return F.win_agg(fn, c, frame=frame).alias(name)
+
+    out = {
+        "peers": base.window(
+            [F.rank().alias("rank"), F.dense_rank().alias("dense_rank"),
+             F.percent_rank().alias("percent_rank"),
+             F.cume_dist().alias("cume_dist"),
+             agg("sum", q, name="sum_q"), agg("avg", q, name="avg_q"),
+             agg("count", vf, name="count_vf"),
+             agg("count_star", name="count_star"),
+             agg("min", vf, name="min_vf"), agg("max", vf, name="max_vf"),
+             agg("sum", dn, name="sum_dn"), agg("avg", dn, name="avg_dn"),
+             agg("sum", dm, name="sum_dm"), agg("max", dm, name="max_dm"),
+             agg("sum", vf, name="f_sum_vf"), agg("avg", vf, name="f_avg_vf"),
+             agg("sum", absf, name="a_sum_vf"),
+             agg("avg", absf, name="a_avg_vf")],
+            partition_by=["i_category"], order_by=[q.desc()]),
+        "rows": base.window(
+            [F.row_number().alias("row_number"),
+             F.ntile(5).alias("ntile"),
+             F.lead(q, 2, default=-1).alias("lead_q"),
+             F.lag(vf).alias("lag_vf"),
+             F.lag(em, 1, default="none@example.com").alias("lag_email"),
+             F.lead(dn).alias("lead_dn"),
+             F.first_value(em).alias("first_email"),
+             F.last_value(vf).alias("last_vf"),
+             F.nth_value(q, 3).alias("nth_q"),
+             agg("sum", q, (-1, 1), "sum_q_c"),
+             agg("count", vf, (-1, 1), "count_vf_c"),
+             agg("count_star", None, (-1, 1), "count_c"),
+             agg("avg", dn, (-1, 1), "avg_dn_c"),
+             agg("sum", dm, (-3, 0), "sum_dm_t"),
+             agg("avg", q, (-3, 0), "avg_q_t"),
+             agg("sum", vf, (-1, 1), "f_sum_vf_c"),
+             agg("sum", absf, (-1, 1), "a_sum_vf_c"),
+             agg("avg", vf, (-3, 0), "f_avg_vf_t"),
+             agg("avg", absf, (-3, 0), "a_avg_vf_t")],
+            partition_by=["i_category"], order_by=row),
+        "whole": base.window(
+            [F.rank().alias("rank"), F.cume_dist().alias("cume_dist"),
+             agg("sum", q, name="sum_q"), agg("count", em, name="count_em"),
+             agg("min", dn, name="min_dn"), agg("max", vf, name="max_vf"),
+             agg("sum", dm, name="sum_dm"),
+             agg("avg", vf, name="f_avg_vf"),
+             agg("avg", absf, name="a_avg_vf")],
+            partition_by=["ss_store_sk"]),
+        "global": base.filter(k < 200).window(
+            [F.row_number().alias("row_number"),
+             F.lag(vf).alias("lag_vf"), agg("max", dn, name="max_dn"),
+             agg("sum", vf, name="f_sum_vf"),
+             agg("sum", absf, name="a_sum_vf")],
+            order_by=row),
+        "group_limit": base.window(
+            [F.rank().alias("rank")],
+            partition_by=["i_category", "i_brand"],
+            order_by=[col("ss_net_profit").desc()], group_limit=3),
+        "cube": base.cube("i_category", "ss_quantity", "ss_store_sk")
+        .agg(F.count_star().alias("n"), F.sum(q).alias("qty"),
+             F.sum(dm).alias("amount"))
+        .window([F.rank().alias("rank"), F.dense_rank().alias("dense")],
+                partition_by=["spark_grouping_id"],
+                order_by=[col("n").desc()]),
+    }
+    return out
+
+
 # the in-memory query: one partition, a complete agg over the memory scan
 
 def store_quantity_dataframe(s, table):
@@ -880,6 +1095,8 @@ QUERIES = [
           _q14_oracle),
     Query("q15_wide_decimal", "decimal(>18) arith→sort", q15_dataframe,
           _q15_oracle),
+    Query("q16_window_rank", "window rank→filter→sort", q16_dataframe,
+          _q16_oracle),
     Query("q13_distinct_buyers", "nested aggs through exchange",
           q13_dataframe, _q13_oracle),
 ]

@@ -259,6 +259,11 @@ class PhysicalOp:
     #: planner's fusion pass chains only fusable ops into a stage.
     fusable: bool = False
 
+    #: batches this op's fragment emits per input batch (ExpandOp emits
+    #: one per projection); the fusion pass bounds the product along a
+    #: chain.
+    fusion_fanout: int = 1
+
     #: does this op's fragment do real device work? Pass-through
     #: fragments (limit's row-count rewrite, rename's identity) are
     #: False: the fusion pass only makes stages holding at least one

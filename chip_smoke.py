@@ -195,14 +195,38 @@ d. ``columnar/decimal128.py`` on the card against the same functions on
    price key), and profiled once at SF1. ``cuda_sum_count.launches``
    stays 0.
 
+Window functions and grouping sets through the same Session, run after
+phase d over phase p's SF10 files and item:
+
+w. q16 (``it/queries.q16_dataframe``: a float sum per (store, item),
+   ~28.2 M groups, ``rank()`` within the store by the sum descending,
+   the top 3, a sort) and ``rollup_rank_dataframe`` (a broadcast join
+   on the item, ``rollup(i_category, i_brand)`` of price × quantity,
+   ``rank()`` within the category, the top 5), each held against a
+   numpy oracle (``check_ranked``: keys exact, sums within 1e-12 of the
+   group's sum of |v|, ranks within what the oracle's near-ties allow
+   and at most the cut, no more rows than the groups that may pass it,
+   every group of a certain rank present, rows in order), timed by its
+   checked run, its host syncs counted per input batch and the window
+   operator's per window batch, each window batch's peak device bytes
+   recorded, and profiled once at SF1; q16 at SF1 once more with each
+   device-to-host copy charged to its caller (``d2h_sources``); then
+   the window sweep
+   (``it/queries.window_sweep_dataframes``: every window function, ROWS
+   frames, string, narrow and wide decimal and float values with NaN and
+   ±inf, a group limit, no partition key, a cube over 3 keys) over SF1's
+   tables on the card against ``Session(device="cpu")`` on the same
+   files, cell by cell (exact; float sums and averages within 1e-12 of
+   their frame's sum of |v|). ``cuda_sum_count.launches`` stays 0.
+
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
 store_sales in one batch.
 
 Output: progress lines, then a JSON line of the stage's numbers, the
-pipeline, Session, join, string, expression and decimal phases and the
-comparisons, the
+pipeline, Session, join, string, expression, decimal and window phases
+and the comparisons, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device":
 {...}}``.
@@ -1621,6 +1645,7 @@ def run_session_query(label: str, make_df, verify, rows: int,
     agg = metrics["agg"].snapshot() if "agg" in metrics else {}
     join = metrics["hash_join"].snapshot() if "hash_join" in metrics \
         else None
+    window = metrics["window"].snapshot() if "window" in metrics else None
 
     ms = first_ms
     if timed:
@@ -1644,6 +1669,7 @@ def run_session_query(label: str, make_df, verify, rows: int,
            "join": None if join is None else {
                k: v for k, v in join.items()
                if k.startswith("dispatch_") or k == "output_rows"},
+           "window": window,
            "profile": prof, "profile_s": profile_s, "plan": tree,
            "table": table}
     log(f"session {label}: " + json.dumps(
@@ -2483,6 +2509,405 @@ def phase_decimals(dev, pipe: dict, seed: int, root: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# window functions and grouping sets (phase w)
+# ---------------------------------------------------------------------------
+
+#: the oracle's candidates per window partition for a ranked check: the
+#: groups of largest sum, and every group tied with the last of them
+RANK_CANDIDATES = 12
+
+def _top_candidates(part, tot, sc, keys_of) -> dict:
+    """{partition: (keys, sums, scales)} of each partition's groups of
+    largest sum, sorted by sum descending: the first RANK_CANDIDATES and
+    every group within 1e-6 of the last of them."""
+    order = np.lexsort((-tot, part))
+    ps = part[order]
+    values, starts = np.unique(ps, return_index=True)
+    ends = np.append(starts[1:], ps.size)
+    out = {}
+    for v, a, b in zip(values.tolist(), starts, ends):
+        idx = order[a:b]
+        m = min(RANK_CANDIDATES, idx.size)
+        m = int(np.count_nonzero(tot[idx] >= tot[idx[m - 1]] - 1e-6))
+        idx = idx[:m]
+        out[v] = (keys_of(idx), tot[idx], sc[idx])
+    return out
+
+
+def q16_window_oracle(cols: dict) -> dict:
+    """q16 in numpy over the generated columns: per store, its candidate
+    (item,) groups with their float64 sums of ``ss_sales_price`` and the
+    sums of |v| (``_top_candidates``)."""
+    store = cols["ss_store_sk"][0]
+    item = cols["ss_item_sk"][0]
+    price = cols["ss_sales_price"][0]
+    n_items = int(item.max()) + 1
+    uk, inv = np.unique(store * n_items + item, return_inverse=True)
+    tot = np.bincount(inv, weights=price)
+    sc = np.bincount(inv, weights=np.abs(price))
+    return _top_candidates(uk // n_items, tot, sc,
+                           lambda idx: [(int(i),) for i in uk[idx] % n_items])
+
+
+def rollup_rank_window_oracle(cols: dict, item: dict) -> dict:
+    """rollup_rank in numpy: per category (None for the grand total),
+    every (brand, grouping id) group with its float64 sum of price ×
+    quantity and its sum of |v|."""
+    it = cols["ss_item_sk"][0]
+    amt = cols["ss_sales_price"][0] * cols["ss_quantity"][0] \
+        .astype(np.float64)
+    cats, cat_of = np.unique(np.asarray(item["i_category"]).astype(str),
+                             return_inverse=True)
+    brands, brand_of = np.unique(np.asarray(item["i_brand"], dtype=object)
+                                 .astype(str), return_inverse=True)
+    nb = brands.size
+    code = cat_of[it] * nb + brand_of[it]
+    pair = np.bincount(code, weights=amt, minlength=cats.size * nb)
+    pair_sc = np.bincount(code, weights=np.abs(amt),
+                          minlength=cats.size * nb)
+    seen = np.bincount(code, minlength=cats.size * nb) > 0
+    out = {}
+    for c, name in enumerate(cats.tolist()):
+        at = np.flatnonzero(seen[c * nb:(c + 1) * nb])
+        keys = [(brands[b], 0) for b in at] + [(None, 1)]
+        tot = np.append(pair[c * nb + at], pair[c * nb:(c + 1) * nb].sum())
+        sc = np.append(pair_sc[c * nb + at],
+                       pair_sc[c * nb:(c + 1) * nb].sum())
+        order = np.argsort(-tot, kind="stable")
+        out[name] = ([keys[i] for i in order], tot[order], sc[order])
+    out[None] = ([(None, 3)], np.array([amt.sum()]),
+                 np.array([np.abs(amt).sum()]))
+    return out
+
+
+def check_ranked(table, part: str, keys: list, value: str, rank: str,
+                 oracle: dict, top: int, label: str) -> dict:
+    """A rank-filtered window result against its oracle's candidates.
+
+    Every partition of the oracle is present; each row's group is among
+    its partition's candidates, its float sum within 1e-12 of the
+    group's sum of |v|, and its rank within what the oracle's sums allow:
+    at least 1 + the groups whose sum is larger by more than the two
+    groups' tolerances, at most 1 + the groups not smaller by more than
+    them (a near-tie may go either way). Every row's rank is at most
+    ``top``, no group comes twice, and a partition holds no more rows
+    than its groups whose rank may be at most ``top``; every group whose
+    rank cannot pass ``top`` is present. The rows are in (partition,
+    rank, keys) order, exactly, nulls first."""
+    rows = table.to_pylist()
+    order = [tuple((r[c] is not None, r[c]) for c in [part, rank] + keys)
+             for r in rows]
+    check(order == sorted(order),
+          f"{label}: rows in ({part}, {rank}, {', '.join(keys)}) order")
+    by_part: dict = {}
+    for r in rows:
+        by_part.setdefault(r[part], []).append(r)
+    check(set(by_part) == set(oracle),
+          f"{label}: {len(by_part)} partitions, the oracle's "
+          f"{len(oracle)}")
+    worst, near = 0.0, 0
+    for p, (ks, tot, sc) in oracle.items():
+        index = {k: i for i, k in enumerate(ks)}
+        tol = F64_SUM_TOL * (sc[:, None] + sc[None, :])
+        diff = tot[None, :] - tot[:, None]          # [i, j] = T_j - T_i
+        lo = 1 + (diff > tol).sum(1)
+        hi = (diff >= -tol).sum(1)                  # self counted once
+        may = int((lo <= top).sum())
+        check(len(by_part[p]) <= may,
+              f"{label}: {p}: {len(by_part[p])} rows, at most the {may} "
+              f"groups whose rank may be <= {top}")
+        seen = set()
+        for r in by_part[p]:
+            k = tuple(r[c] for c in keys)
+            check(k in index, f"{label}: {p}/{k} among the oracle's "
+                  f"{len(ks)} largest groups")
+            check(r[rank] <= top, f"{label}: {p}/{k} rank {r[rank]} <= {top}")
+            i = index[k]
+            check(i not in seen, f"{label}: {p}/{k} once")
+            err = abs(r[value] - tot[i])
+            check(err <= F64_SUM_TOL * sc[i],
+                  f"{label}: {p}/{k} sum within {F64_SUM_TOL} of its sum "
+                  "of |v|")
+            worst = max(worst, err / max(sc[i], 1e-300))
+            check(lo[i] <= r[rank] <= hi[i],
+                  f"{label}: {p}/{k} rank {r[rank]} in [{lo[i]}, {hi[i]}]")
+            near += int(lo[i] != hi[i])
+            seen.add(i)
+        must = {i for i in range(len(ks)) if hi[i] <= top}
+        check(must <= seen, f"{label}: {p}: every group of rank <= {top}")
+    out = {"rows": len(rows), "partitions": len(by_part),
+           "near_ties": near, "max_err_share": worst}
+    log(f"{label}: {json.dumps(out)}")
+    return out
+
+
+def sweep_compare(want, got, name: str) -> dict:
+    """One window sweep query on the card against the CPU, after both
+    are sorted by the row's identity: every column cell by cell
+    (``compare_cells``: exact), but the float sums and averages ``f_*``,
+    which must be within 1e-12 of their ``a_*`` twin (Σ|v| over the same
+    frame) and identical where not finite."""
+    import pyarrow.compute as pc
+    from auron_tpu_torch.it import queries as tq
+    from auron_tpu_torch.it.comparator import compare_cells
+    keys = list(tq.WINDOW_SWEEP_ROW) if name != "cube" else \
+        ["i_category", "ss_quantity", "ss_store_sk", "spark_grouping_id"]
+
+    def ordered(t):
+        return t.take(pc.sort_indices(
+            t, sort_keys=[(k, "ascending") for k in keys],
+            null_placement="at_start"))
+
+    want, got = ordered(want), ordered(got)
+    fcols = [c for c in want.column_names if c.startswith("f_")]
+    exact = [c for c in want.column_names if not c.startswith(("f_", "a_"))]
+    bad, _ = compare_cells(want.select(exact), got.select(exact))
+    check(not bad, f"sweep {name}: the card's cells are the CPU's: "
+          f"{bad[:5]}")
+    worst = 0.0
+    for c in fcols:
+        w = want[c].to_numpy(zero_copy_only=False)
+        g = got[c].to_numpy(zero_copy_only=False)
+        scale = want["a_" + c[2:]].to_numpy(zero_copy_only=False)
+        wn = want[c].is_null().to_numpy(zero_copy_only=False)
+        check(np.array_equal(wn, got[c].is_null().to_numpy(
+            zero_copy_only=False)), f"sweep {name}: {c} nulls")
+        w, g, scale = w[~wn].astype(float), g[~wn].astype(float), \
+            scale[~wn].astype(float)
+        fin = np.isfinite(w)
+        check(np.array_equal(np.isnan(w), np.isnan(g))
+              and np.array_equal(w[np.isinf(w)], g[np.isinf(w)]),
+              f"sweep {name}: {c} identical where not finite")
+        err = np.abs(g[fin] - w[fin])
+        check(bool((err <= F64_SUM_TOL * scale[fin]).all()),
+              f"sweep {name}: {c} within {F64_SUM_TOL} of Σ|v|")
+        if fin.any():
+            worst = max(worst, float((err / np.maximum(scale[fin], 1e-300))
+                                     .max()))
+    return {"rows": got.num_rows, "columns": got.num_columns,
+            "float_columns": len(fcols), "max_err_share": worst}
+
+
+class _WindowPeaks:
+    """Wraps ``ops.window.window_batch`` while phase w runs: each call's
+    input capacity, its device bytes at entry and its peak above them
+    (``torch.cuda.max_memory_allocated`` after a reset at entry; the
+    caching allocator counts at allocation, so no sync is needed)."""
+
+    def __init__(self):
+        from auron_tpu_torch.ops import window as twin
+        self.module, self.inner, self.calls = twin, twin.window_batch, []
+
+    def __enter__(self):
+        def measured(batch, *args):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = self.inner(batch, *args)
+            self.calls.append({"capacity": batch.capacity,
+                               "allocated_bytes": base,
+                               "peak_extra_bytes":
+                               torch.cuda.max_memory_allocated() - base})
+            return out
+
+        self.module.window_batch = measured
+        return self
+
+    def __exit__(self, *exc):
+        self.module.window_batch = self.inner
+        return False
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def d2h_sources(fn) -> dict:
+    """Where ``fn``'s device-to-host copies come from. One call runs under
+    the profiler (host and device activity) with ``Tensor.cpu`` and
+    ``Tensor.tolist`` of a CUDA tensor, the port's reads of the device
+    (``ops.base.host_copy`` and ``host_readback``), each inside a
+    ``record_function`` named by the first frame of the package outside
+    ``ops/base.py`` that asked for it. Each device-to-host memcpy is
+    charged to the annotation whose host interval holds the start of the
+    host event it is linked to (not its own start: the card's clock may
+    lead the host's by more than the gap between two reads), the rest to
+    "unattributed". Returns {caller: {calls, bytes, ms}}, the largest ms
+    first."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pkg, base_py = str(ROOT / "auron_tpu_torch"), str(
+        ROOT / "auron_tpu_torch" / "ops" / "base.py")
+    asked: dict = {}
+    saved = {m: torch.Tensor.__dict__.get(m) for m in ("cpu", "tolist")}
+
+    def wrapped(method):
+        inner = getattr(torch.Tensor, method)
+
+        def call(t, *a, **k):
+            if not t.is_cuda:
+                return inner(t, *a, **k)
+            f = sys._getframe(1)
+            while f is not None and not (f.f_code.co_filename.startswith(pkg)
+                                         and f.f_code.co_filename != base_py):
+                f = f.f_back
+            where = "outside the package" if f is None else (
+                f"{Path(f.f_code.co_filename).relative_to(ROOT)}:"
+                f"{f.f_lineno} {f.f_code.co_name}")
+            rec = asked.setdefault(where, {"calls": 0, "bytes": 0, "ms": 0.0})
+            rec["calls"] += 1
+            rec["bytes"] += t.numel() * t.element_size()
+            with record_function("d2h " + where):
+                return inner(t, *a, **k)
+        return call
+
+    torch.cuda.synchronize()
+    try:
+        for m in saved:
+            setattr(torch.Tensor, m, wrapped(m))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for m, v in saved.items():
+            if v is None:
+                delattr(torch.Tensor, m)
+            else:
+                setattr(torch.Tensor, m, v)
+    spans, copies, host_start = [], [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            if not e.name().startswith("cuda"):   # runtime calls: CUPTI ids
+                host_start[e.correlation_id()] = e.start_ns()
+            if e.name().startswith("d2h "):
+                spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                              e.name()[4:]))
+        elif e.device_type() == torch.autograd.DeviceType.CUDA \
+                and e.name().startswith("Memcpy DtoH"):
+            copies.append((e.linked_correlation_id(), e.duration_ns() / 1e6))
+    spans.sort()
+    starts = [a for a, _, _ in spans]
+    for link, ms in copies:
+        start = host_start.get(link, -1)
+        i = int(np.searchsorted(starts, start, side="right")) - 1
+        where = spans[i][2] if i >= 0 and start <= spans[i][1] \
+            else "unattributed"
+        rec = asked.setdefault(where, {"calls": 0, "bytes": 0, "ms": 0.0})
+        rec["ms"] += ms
+    out = dict(sorted(asked.items(), key=lambda kv: -kv[1]["ms"]))
+    log("device-to-host copies by caller: " + json.dumps(out))
+    return out
+
+
+def phase_windows(dev, pipe: dict, seed: int, root: str,
+                  profile_sf10: bool) -> dict:
+    """w. q16 and rollup_rank through the Session over phase p's SF10
+    files, each checked against
+    its numpy oracle, timed by its checked run, its syncs counted (per
+    input batch, and the window operator's own per window batch), its
+    window batches' peak device bytes recorded, and profiled once at SF1
+    (at SF10 with ``profile_sf10``); then the window sweep over SF1's
+    tables on the card against the same queries on the CPU."""
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+
+    t_phase = time.perf_counter()
+    check(pipe["files"] is not None and pipe["dim_files"] is not None,
+          "the window phase reads parquet: pyarrow imports")
+    cols = pipe["cols"]
+    rows = cols["ss_store_sk"][0].size
+    tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
+    _, sf1_files = sf1_data(seed, root)
+    prof_tables = tables if profile_sf10 else sf1_files
+    session = Session(device=dev)
+    gagg.cuda_sum_count.launches = 0
+    t0 = time.perf_counter()
+    oracles = {"q16": q16_window_oracle(cols),
+               "rollup_rank": rollup_rank_window_oracle(
+                   cols, pipe["dims"]["item"])}
+    out = {"rows": rows, "oracle_s": time.perf_counter() - t0}
+    queries = {
+        "q16": (lambda t: tq.q16_dataframe(session, t),
+                ("ss_store_sk", ["ss_item_sk"], "rev", "rnk", 3)),
+        "rollup_rank": (lambda t: tq.rollup_rank_dataframe(session, t),
+                        ("i_category", ["i_brand", "spark_grouping_id"],
+                         "total", "rk", tq.ROLLUP_RANK_TOP)),
+    }
+    with _WindowPeaks() as peaks:
+        for name, (make, shape) in queries.items():
+            def verify(t, _s, name=name, shape=shape):
+                part, keys, value, rank, top = shape
+                return check_ranked(t, part, keys, value, rank,
+                                    oracles[name], top, f"windows.{name}")
+
+            peaks.take()
+            base = torch.cuda.memory_allocated()
+            res = run_session_query(
+                f"windows.{name}", lambda m=make: m(tables),
+                verify, rows, lambda m=make: m(prof_tables),
+                timed=False)
+            # the checked run's window batches come first, the profiled
+            # run's after them
+            w = res["window"]
+            res["window_batches"] = peaks.take()[:w["output_batches"]]
+            res["window_peak_extra_bytes"] = max(
+                c["peak_extra_bytes"] for c in res["window_batches"])
+            res["allocated_before_bytes"] = base
+            res["host_syncs_per_window_batch"] = \
+                w["host_syncs"] / w["output_batches"]
+            del res["table"]
+            res["profile_scale"] = PIPE_SCALE if profile_sf10 \
+                else JOIN_CHECK_SCALE
+            out[name] = res
+    # the SF1 profile's largest device item is a device-to-host copy:
+    # name the code that asks for it
+    out["q16"]["d2h_sources"] = d2h_sources(
+        lambda: tq.q16_dataframe(session, sf1_files).collect())
+    out["sweep"] = window_sweep(session, sf1_files)
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    check(out["cuda_sum_count_launches"] == 0,
+          "no cuda_dense_sum_count launch on the window path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"window phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def window_sweep(session, files: dict) -> dict:
+    """The window sweep (``it/queries.window_sweep_dataframes``) over
+    SF1's tables on the card, each query timed by its wall, against the
+    same queries through ``Session(device="cpu")``."""
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import queries as tq
+    cpu = Session(device="cpu")
+    t0 = time.perf_counter()
+    want = {n: df.collect() for n, df in
+            tq.window_sweep_dataframes(cpu, files).items()}
+    out = {"cpu_s": time.perf_counter() - t0}
+    total_ms, scanned = 0.0, 0
+    s0 = host_readback.syncs
+    for name, df in tq.window_sweep_dataframes(session, files).items():
+        metrics = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = df.collect(metrics=metrics)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        res = sweep_compare(want[name], got, name)
+        w = metrics["window"].snapshot()
+        res.update(ms=ms, window_host_syncs=w["host_syncs"],
+                   window_batches=w["output_batches"])
+        out[name] = res
+        total_ms += ms
+        scanned += metrics["parquet_scan"].snapshot()["output_rows"]
+    out["ms"] = total_ms
+    out["scanned_rows"] = scanned
+    out["rows_per_s"] = scanned / (total_ms / 1e3)
+    out["host_syncs"] = host_readback.syncs - s0
+    log("window sweep: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -2514,6 +2939,8 @@ def main() -> int:
                                         args.profile_at_sf10)
         decimals = phase_decimals(dev, pipe, args.seed, root,
                                   args.profile_at_sf10)
+        windows = phase_windows(dev, pipe, args.seed, root,
+                                args.profile_at_sf10)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del pipe
@@ -2542,7 +2969,8 @@ def main() -> int:
             "joins": joins["cuda_sum_count_launches"],
             "strings": strings["cuda_sum_count_launches"],
             "expressions": expressions["cuda_sum_count_launches"],
-            "decimals": decimals["cuda_sum_count_launches"]},
+            "decimals": decimals["cuda_sum_count_launches"],
+            "windows": windows["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -2562,7 +2990,7 @@ def main() -> int:
     report = {"build_s": build_s, "stages": other["stages"],
               "pipeline": pipeline, "session": session, "joins": joins,
               "strings": strings, "expressions": expressions,
-              "decimals": decimals,
+              "decimals": decimals, "windows": windows,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

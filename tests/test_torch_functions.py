@@ -174,12 +174,20 @@ def test_later_names_raise_naming_their_item(name, batches):
 
 def test_decimal_casts_and_list_access_raise(batches):
     """Casts to decimal(0, 0) evaluate as the reference's (the decimal
-    cast matrix is ``test_torch_eval.py``'s); a list access raises
-    naming 16f."""
+    cast matrix is ``test_torch_eval.py``'s), but int64.min, which
+    passes the reference's wrapped range check and is null in Spark and
+    the port (ROADMAP Queue 3 item 24); a list access raises naming
+    16f."""
+    _jb, _js, tb, ts = batches
+    i64 = tb.columns[cases.COLS.index("i64")].data.numpy()[:cases.ROWS]
+    wraps = i64 == np.iinfo(np.int64).min
     for spec in (("cast", c("s"), "DECIMAL"), ("cast", c("i64"), "DECIMAL")):
         want, got = cases.eval_both(spec, batches)
-        cases.assert_same(want, got, 0, repr(spec))
-    _jb, _js, tb, ts = batches
+        skip = wraps if spec[1] == c("i64") else None
+        cases.assert_same(want, got, 0, repr(spec), skip=skip)
+        if skip is not None:
+            assert skip.any()
+            assert not got.validity.numpy()[:cases.ROWS][skip].any()
     with pytest.raises(NotImplementedError, match="16f"):
         teval.evaluate(tir.GetIndexedField(tir.ScalarFunction(
             "array", (tir.ColumnRef(2),)), 0), tb, ts)

@@ -65,6 +65,9 @@ FIELDS = {
     "FusedStageOp": (),
     "HashJoinOp": ("join_type", "probe_keys", "build_keys"),
     "BroadcastExchangeOp": ("input_partitions",),
+    "WindowOp": ("partition_by", "order_by", "functions", "output_names",
+                 "group_limit"),
+    "ExpandOp": ("projections", "names", "fusion_fanout"),
 }
 
 
@@ -268,7 +271,7 @@ def test_unported_nodes_raise_naming_them(data):
         "output_resource_id": tpb.PlanNode(
             broadcast_exchange=tpb.BroadcastExchangeNode(
                 child=scan, output_resource_id="build")),
-        "window": tpb.PlanNode(window=tpb.WindowNode(child=scan)),
+        "generate": tpb.PlanNode(generate=tpb.GenerateNode(child=scan)),
         "pushdown": tpb.PlanNode(parquet_scan=tpb.ParquetScanNode(
             files=tables["store_sales"], predicates=[tpb.ExprNode(
                 column=tpb.ColumnRefE(index=0))])),

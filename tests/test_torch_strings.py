@@ -663,3 +663,75 @@ def test_exchanges_carry_strings():
         outs.append((_rows(ns, ex, 2), _rows(ns, bc, 2)))
     assert outs[1] == outs[0]
     assert len(outs[1][0]) == 240 and len(outs[1][1]) == 480
+
+
+#: ROADMAP Queue 3 item 25's sides: widths 8 and 32 (a 17-byte key)
+_NARROW = {"s": ["a", "bb", None, "", "zz"], "x": [0, 1, 2, 3, 4]}
+_WIDE = {"t": ["abcdefghijklmnopq", "a", "", None, "q"],
+         "y": [0, 1, 2, 3, 4]}
+
+
+def _join_oracle(probe: dict, build: dict, how: str) -> list:
+    """SQL's rows of ``probe JOIN build`` on their first columns as
+    python tuples: a null
+    key matches nothing; semi, anti and existence keep the probe's rows
+    (anti keeps a null-key row, which matches nothing)."""
+    pn, bn = list(probe), list(build)
+    prow = list(zip(*probe.values()))
+    brow = list(zip(*build.values()))
+    nulls_b = (None,) * len(bn)
+    out, hit_b = [], set()
+    for pr in prow:
+        hits = [j for j, br in enumerate(brow)
+                if pr[0] is not None and br[0] == pr[0]]
+        hit_b.update(hits)
+        if how == "semi":
+            out += [pr] if hits else []
+        elif how == "anti":
+            out += [] if hits else [pr]
+        elif how == "existence":
+            out.append(pr + (bool(hits),))
+        else:
+            out += [pr + brow[j] for j in hits]
+            if not hits and how in ("left", "full"):
+                out.append(pr + nulls_b)
+    if how == "full":
+        out += [(None,) * len(pn) + br for j, br in enumerate(brow)
+                if j not in hit_b]
+    return out
+
+
+def _sort_key(row):
+    return tuple((v is None, "" if v is None else str(v)) for v in row)
+
+
+@pytest.mark.parametrize("index", ["ht", "sorted"])
+@pytest.mark.parametrize("build_side", ["co_partitioned", "broadcast"])
+@pytest.mark.parametrize("probe_width", [8, 32])
+@pytest.mark.parametrize("how", ["inner", "left", "full", "semi", "anti",
+                                 "existence"])
+def test_string_key_join_across_widths_gives_sql_rows(how, probe_width,
+                                                      build_side, index):
+    """A probe of string width 8 against a build of width 32, and the
+    other way round, through every join type, a co-partitioned and a
+    broadcast build side, and both candidate searches: SQL's rows. The
+    reference raises here (``pairwise_eq`` compares chars of two widths:
+    ROADMAP Queue 3 item 25), so the oracle is plain Python."""
+    probe, build = (_NARROW, _WIDE) if probe_width == 8 else (_WIDE, _NARROW)
+    p_rb, b_rb = pa.record_batch(probe), pa.record_batch(build)
+    p = PORT.Mem([[p_rb]], tbridge.schema_from_arrow(p_rb.schema),
+                 capacity=8)
+    assert p.schema()[0].dtype == TDT.STRING
+    b = PORT.Mem([[b_rb]], tbridge.schema_from_arrow(b_rb.schema),
+                 capacity=8)
+    if build_side == "broadcast":
+        b = TBroadcast(b, input_partitions=1)
+    C = tir.ColumnRef
+    op = TJoin(p, b, [C(0)], [C(0)], how)
+    conf = tcfg.AuronConfig({"auron.hashtable.enabled": index == "ht"})
+    got = [tuple(r.values()) for r in _rows(PORT, op, 1, conf)]
+    widths = {next(iter(b.execute(0, TCtx()))).columns[0].width
+              for b in (p, b)}
+    assert widths == {8, 32}
+    want = _join_oracle(probe, build, how)
+    assert sorted(got, key=_sort_key) == sorted(want, key=_sort_key)
