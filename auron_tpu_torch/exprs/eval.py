@@ -239,6 +239,12 @@ def _evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
         return TypedValue(batch.columns[expr.index], f.dtype, f.precision,
                           f.scale)
 
+    if isinstance(expr, ir.ScalarSubquery):
+        raise RuntimeError(
+            "unresolved scalar subquery reached evaluation — plans with "
+            "subqueries must go through plan_from_bytes / the DataFrame "
+            "API (ScalarSubqueryBinderOp substitutes the value)")
+
     if isinstance(expr, ir.Literal):
         if expr.dtype == DataType.DECIMAL and expr.precision > 18:
             return TypedValue(_wide_literal(expr.value, cap, batch.device),
@@ -345,7 +351,7 @@ def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
         return DataType.BOOL, 0, 0
     if isinstance(expr, ir.Negative):
         return infer_dtype(expr.child, schema)
-    if isinstance(expr, ir.Cast):
+    if isinstance(expr, (ir.Cast, ir.ScalarSubquery)):
         return expr.dtype, expr.precision, expr.scale
     if isinstance(expr, ir.CaseWhen):
         if expr.when_then:

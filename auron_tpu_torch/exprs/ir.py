@@ -184,6 +184,21 @@ class GetIndexedField(Expr):
 
 
 @dataclass(frozen=True)
+class ScalarSubquery(Expr):
+    """Uncorrelated scalar subquery: ``plan_bytes`` is a serialized
+    PlanNode run once per task by ``ops/subquery.py``'s binder, whose one
+    value replaces this node as a Literal before any operator runs. Held
+    as bytes so the tree stays hashable; it has no expression children
+    (the plan is opaque here). ``sid`` tells apart subqueries built
+    separately and takes no part in resolution."""
+    plan_bytes: bytes
+    dtype: DataType
+    precision: int = 0
+    scale: int = 0
+    sid: int = 0
+
+
+@dataclass(frozen=True)
 class SortOrder:
     expr: Expr
     ascending: bool = True

@@ -4,9 +4,11 @@ The port of ``auron_tpu.frontend.dataframe`` for the expressions and
 transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
-query; what the port cannot plan yet (DISTINCT aggregates, scalar
-subqueries, host functions, the scalar functions of ROADMAP items 16f
-and 17b) raises ``NotImplementedError`` or is absent. Window functions
+query; what the port cannot plan yet (DISTINCT aggregates, host
+functions, the scalar functions of ROADMAP items 16f and 17b) raises
+``NotImplementedError`` or is absent. Uncorrelated scalar subqueries
+(``scalar_subquery``) resolve once per task in ``ops/subquery.py``'s
+binder. Window functions
 (``DataFrame.window`` with the builders on ``functions``) and grouping
 sets (``expand``, ``grouping_sets``, ``rollup``, ``cube``) build the
 reference's nodes.
@@ -218,7 +220,28 @@ def resolve(c: Col, schema: Schema) -> ir.Expr:
         _, fname, args = n
         return ir.ScalarFunction(
             fname, tuple(resolve(a, schema) for a in args))
+    if tag == "subquery":
+        _, plan_bytes, dtype, p, s, sid = n
+        return ir.ScalarSubquery(plan_bytes, dtype, p, s, sid)
     raise NotImplementedError(f"cannot resolve column node {tag!r}")
+
+
+_SUBQUERY_IDS = iter(range(1, 1 << 30))
+
+
+def scalar_subquery(df) -> Col:
+    """An uncorrelated scalar subquery over a one-column DataFrame: its
+    plan runs once per task and its one value becomes a literal (Spark's
+    ScalarSubquery; 0 rows give NULL, more than one row raises).
+    Correlated subqueries are written as joins, as Spark's optimizer
+    rewrites them before the physical plan exists."""
+    if len(df.schema) != 1:
+        raise ValueError(
+            f"scalar subquery must produce exactly one column, got "
+            f"{[f.name for f in df.schema]}")
+    f = df.schema[0]
+    return Col(("subquery", df.plan.SerializeToString(), f.dtype,
+                f.precision, f.scale, next(_SUBQUERY_IDS)))
 
 
 class _Functions:
@@ -312,7 +335,9 @@ class GroupedData:
         distinct = [a.fn for a in aggs if a.distinct]
         if distinct:
             raise NotImplementedError(
-                f"DISTINCT aggregates ({', '.join(distinct)})")
+                f"DISTINCT aggregates ({', '.join(distinct)}): their "
+                "collect_set state needs the list columns of ROADMAP item "
+                "16f-c")
         schema = self.df.schema
         group_exprs = [resolve(k, schema) for k in self.keys]
         group_names = [k.out_name(f"k{i}") for i, k in enumerate(self.keys)]

@@ -9,6 +9,11 @@ round-robin, single and range) on its host route. The sort-merge and broadcast j
 broadcast exchange that publishes its output as a resource; every other
 node raises naming itself. Scans run on the context's device.
 
+A task whose plan holds uncorrelated scalar subqueries plans to
+``ops/subquery.py``'s ``ScalarSubqueryBinderOp``, which runs each
+subquery once, substitutes its value as a literal and plans the rest
+(``_collect_subqueries``, ``subquery_key``, ``substitute_subqueries``).
+
 After planning, ``fuse_stages`` chains row-local operators into
 ``FusedStageOp``s as the reference's pass does, a chain stopping
 where the product of its members' fan-outs would pass 16. Two of the
@@ -75,6 +80,12 @@ class PhysicalPlanner:
     # -- entry points -------------------------------------------------------
 
     def plan_task(self, task: pb.TaskDefinition) -> PhysicalOp:
+        if _collect_subqueries(task.plan):
+            # every uncorrelated scalar subquery of the tree resolves once
+            # at task start; the binder re-plans with the values as
+            # literals and applies the fusion pass after substitution
+            from auron_tpu_torch.ops.subquery import ScalarSubqueryBinderOp
+            return ScalarSubqueryBinderOp(task.plan, self.ctx)
         return self.finalize_plan(self.create_plan(task.plan))
 
     def finalize_plan(self, op: PhysicalOp) -> PhysicalOp:
@@ -366,6 +377,55 @@ def plan_from_bytes(data: bytes,
                     ctx: Optional[PlannerContext] = None) -> PhysicalOp:
     """Decode a serialized TaskDefinition and build its plan."""
     return PhysicalPlanner(ctx).plan_task(pb.TaskDefinition.FromString(data))
+
+
+def _collect_subqueries(msg) -> list:
+    """Every ScalarSubqueryE reachable from ``msg`` (any proto message),
+    outermost occurrences only: a subquery's own plan is scanned again
+    when it is planned."""
+    found = []
+    for fd, val in msg.ListFields():
+        if fd.type != fd.TYPE_MESSAGE:
+            continue
+        for v in (val if fd.is_repeated else [val]):
+            if isinstance(v, pb.ExprNode) \
+                    and v.WhichOneof("expr") == "scalar_subquery":
+                found.append(v.scalar_subquery)
+            elif not isinstance(v, pb.ScalarSubqueryE):
+                found.extend(_collect_subqueries(v))
+    return found
+
+
+def subquery_key(q) -> bytes:
+    """Resolution key of a ScalarSubqueryE: its plan and result type
+    without the ``sid``, so that two equal subqueries built separately
+    share one resolution."""
+    k = pb.ScalarSubqueryE()
+    k.CopyFrom(q)
+    k.sid = 0
+    return k.SerializeToString()
+
+
+def substitute_subqueries(node: pb.PlanNode,
+                          values: dict[bytes, pb.ExprNode]) -> pb.PlanNode:
+    """A copy of ``node`` with every scalar_subquery ExprNode replaced by
+    the literal ExprNode ``values`` holds under its ``subquery_key``."""
+    out = pb.PlanNode()
+    out.CopyFrom(node)
+
+    def walk(msg):
+        for fd, val in msg.ListFields():
+            if fd.type != fd.TYPE_MESSAGE:
+                continue
+            for v in (val if fd.is_repeated else [val]):
+                if isinstance(v, pb.ExprNode) \
+                        and v.WhichOneof("expr") == "scalar_subquery":
+                    v.CopyFrom(values[subquery_key(v.scalar_subquery)])
+                else:
+                    walk(v)
+
+    walk(out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -88,8 +88,7 @@ _PARSE_STRING_PRED = {kind: cls for cls, (kind, _) in _STRING_PRED.items()}
 #: expression kinds of the proto the port does not evaluate, with the
 #: ROADMAP item that brings each
 _UNPORTED_KINDS = {"nullary": "17b", "host_udf": "17b",
-                   "bloom_might_contain": "17b", "scalar_subquery": "17b",
-                   "get_struct_field": "16f"}
+                   "bloom_might_contain": "17b", "get_struct_field": "16f"}
 _PARSE_UNARY = {v: k for k, v in _UNARY.items()}
 
 
@@ -176,6 +175,11 @@ def expr_to_proto(e: ir.Expr) -> pb.ExprNode:
     if isinstance(e, ir.GetIndexedField):
         return pb.ExprNode(get_indexed_field=pb.GetIndexedFieldE(
             child=expr_to_proto(e.child), ordinal=e.ordinal))
+    if isinstance(e, ir.ScalarSubquery):
+        return pb.ExprNode(scalar_subquery=pb.ScalarSubqueryE(
+            plan=pb.PlanNode.FromString(e.plan_bytes),
+            dtype=_DT_TO_P[e.dtype], precision=e.precision, scale=e.scale,
+            sid=e.sid))
     raise NotImplementedError(f"expr_to_proto: {type(e).__name__}")
 
 
@@ -237,6 +241,11 @@ def parse_expr(p: pb.ExprNode) -> ir.Expr:
     if kind == "get_indexed_field":
         return ir.GetIndexedField(parse_expr(p.get_indexed_field.child),
                                   p.get_indexed_field.ordinal)
+    if kind == "scalar_subquery":
+        q = p.scalar_subquery
+        return ir.ScalarSubquery(q.plan.SerializeToString(),
+                                 _P_TO_DT[q.dtype], q.precision, q.scale,
+                                 q.sid)
     if kind in _UNPORTED_KINDS:
         raise NotImplementedError(
             f"parse_expr: {kind} (ROADMAP item {_UNPORTED_KINDS[kind]})")

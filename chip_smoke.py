@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py [--profile-at-sf10]
 
-``--profile-at-sf10`` profiles each Session query of phases s, j and t
-over the SF10 files it times instead of SF1's: the launches and busy
-shares of the timed query, for measurement; the script then runs past
-the 1200 s it keeps to without it.
+Phases p, s, j, t, e, d and w run at TPC-DS SF1 (scale 24 of
+``it.tpcds_data``: 2,880,000 store_sales rows), a depth cut that keeps
+the script inside its 1200 s beside phase q; the sizes below are
+SF10's, ten times SF1's. ``--profile-at-sf10`` runs them at SF10 (scale
+240) and profiles each Session query there instead of at SF1: the
+launches and busy shares of the timed query, for measurement; the
+script then runs past its limit.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -58,7 +61,8 @@ parquet or device scan → filter → partial AggOp → 4-way hash exchange →
 final AggOp → collect), run after phase c:
 
 p. TPC-DS SF10's store_sales, made on the machine by
-   ``it.tpcds_data.store_sales_columns(240, --seed)``: 28,800,000 rows,
+   ``it.tpcds_data.store_sales_columns(240, --seed)`` (scale 24 at
+   SF1): 28,800,000 rows,
    8 int64/float64 columns, 2,880 stores, cut at the reference's 4 file
    ranges into 2^16-row device batches (4 partitions of 110 batches).
    Two plans over ``DeviceBatchScanOp``: (a) the reference planner's,
@@ -83,11 +87,11 @@ protobuf TaskDefinition → planner → collect), run after phase p:
 
 s. q01, q10, q11 and q13 of ``it/queries.py`` through
    ``Session(device="cuda").read_parquet(files, partitions=4)`` over
-   phase p's 4 files, each checked against a numpy oracle on the
+   the 4 store_sales files, each checked against a numpy oracle on the
    generated columns (keys, counts and integer sums identical, float
    sums and means within 1e-12 of the group's sum of |v|); q01 also
-   against phase p's plan (a), row for row and in order, with the same
-   plan above the scan. Then ``store_quantity_dataframe`` over
+   against plan (a) over the same rows, row for row and in order, with
+   the same plan above the scan. Then ``store_quantity_dataframe`` over
    ``Session.from_arrow`` of the same table: the planner must derive
    ``key_domain = max(ss_store_sk) + 1`` and the AggOp take the dense
    path. ``cuda_sum_count.launches`` must stay 0 across the phase: the
@@ -149,10 +153,7 @@ t. q03 (a co-partitioned join on the item, ``i_category IN (...)``, a
    |v|; q07's rows in order, swaps allowed only between near-ties). Each
    query's time is the CUDA-synchronised wall of its checked run (one
    run), its host syncs per input batch are counted there, and it is
-   profiled once at SF1. q07 runs, is checked and is timed over SF1's
-   tables (a depth cut: at SF10 it took ~164 s of the 1200 s limit;
-   ``--profile-at-sf10`` runs it at SF10). Every AggOp's path and reason
-   is checked:
+   profiled once at SF1. Every AggOp's path and reason is checked:
    ``sort`` (``float_sum_inexact``; ``acc_kind:smin`` for q06) or
    ``hashtable`` (q08, q09). ``cuda_sum_count.launches`` stays 0.
 
@@ -196,7 +197,7 @@ d. ``columnar/decimal128.py`` on the card against the same functions on
    stays 0.
 
 Window functions and grouping sets through the same Session, run after
-phase d over phase p's SF10 files and item:
+phase d over phase p's files and item:
 
 w. q16 (``it/queries.q16_dataframe``: a float sum per (store, item),
    ~28.2 M groups, ``rank()`` within the store by the sum descending,
@@ -219,14 +220,35 @@ w. q16 (``it/queries.q16_dataframe``: a float sum per (store, item),
    files, cell by cell (exact; float sums and averages within 1e-12 of
    their frame's sum of |v|). ``cuda_sum_count.launches`` stays 0.
 
+The TPC-DS and TPC-H suites through the same Session, run after phase
+w (``it/tpcds.py``, ``it/tpcds_queries.py``, ``it/tpch.py``,
+``it/tpch_queries.py``, generated under the same directory):
+
+q. TPC-DS at scale 1.0 (store_sales 1,000,000 rows, catalog_sales
+   500,000, web_sales 250,000, store_returns 100,000; item 18,000,
+   customer 100,000: the reference's own full-gate setting) and TPC-H at
+   scale 10 (600,000 lineitems). Both are depth cuts for the limit:
+   TPC-DS at 2.88 has SF1's fact rows, TPC-H at 100 is SF1. The
+   oracles (pyarrow and pandas) run first in worker processes
+   (``it.runner.suite_oracles``); then every query runs in a fresh
+   ``Session`` on the card through ``it.runner``, in ``QUERIES`` order,
+   and must match its oracle with the reference's comparator (TPC-DS:
+   1e-7 relative, 1e-6 absolute; TPC-H 1e-7 and 1e-5; decimals cast to
+   float64) and return rows: 95 TPC-DS queries and 6 TPC-H ones. q16,
+   q94, q95 and q28 must raise ``NotImplementedError`` naming ROADMAP
+   item 16f-c (DISTINCT aggregates). Per query: the wall ms of its
+   checked run (the oracle's ms apart), its rows, host syncs, scalar
+   subqueries resolved and their ms, and ``cuda_sum_count.launches``;
+   per suite the totals. q14 and the slowest query are profiled once.
+
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
 [0, 40). 2^22 rows also hold all 2,880,404 rows of TPC-DS SF1
 store_sales in one batch.
 
 Output: progress lines, then a JSON line of the stage's numbers, the
-pipeline, Session, join, string, expression, decimal and window phases
-and the comparisons, the
+pipeline, Session, join, string, expression, decimal, window and suite
+phases and the comparisons, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device":
 {...}}``.
@@ -236,6 +258,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
 import statistics
@@ -303,18 +326,25 @@ STREAM_KINDS = ("sum", "sum", "min", "max", "first", "sum")
 I64 = np.iinfo(np.int64)
 #: the build/probe phase: rows, and distinct keys of the join's build side
 TABLE_ROWS, JOIN_KEYS = 1 << 20, 1 << 18
-#: the pipeline phase: scale 240 is 28,800,000 store_sales rows (TPC-DS
-#: SF10 has 28,800,991), in 4 partitions; the row-order check's scale
+#: the pipeline phase with ``--profile-at-sf10``: scale 240 is 28,800,000
+#: store_sales rows (TPC-DS SF10 has 28,800,991), in 4 partitions (else
+#: it runs at JOIN_CHECK_SCALE, SF1); the row-order check's scale
 PIPE_SCALE, PIPE_PARTITIONS, PIPE_ORDER_SCALE = 240, 4, 1
 #: timed queries per plan, after one warm-up
 PIPE_RUNS = 3
-#: the dimension tables of phases j and t at SF10, written beside the
+#: the dimension tables of phases j and t, written beside the
 #: fact files; the scale of phase j's checked-only joins and of phase t's
 #: profiled queries (SF1's 2,880,000 rows)
 JOIN_DIMENSIONS = ("date_dim", "item", "customer", "store")
 JOIN_CHECK_SCALE = 24
 #: the string queries of phase t, in it/queries.py's order
 STRING_QUERIES = ("q03", "q04", "q06", "q07", "q08", "q09")
+#: phase q: TPC-DS at scale 1.0 (1,000,000 store_sales rows) and TPC-H
+#: at scale 10 (600,000 lineitems), depth cuts for the limit: SF1 is
+#: 2.88 (2,880,000 store_sales rows) and 100 (6,000,000 lineitems)
+SUITE_TPCDS_SCALE, SUITE_TPCH_SCALE = 1.0, 10
+#: the TPC-DS queries whose DISTINCT aggregates wait for ROADMAP item 16f-c
+SUITE_DISTINCT = ("q16", "q94", "q95", "q28")
 #: the directory of the repo, under which the parquet run writes its files
 ROOT = Path(__file__).resolve().parent
 
@@ -1268,23 +1298,23 @@ def pipeline_kernel_shape(cols: dict, domain: int, dev, rate: float
     return out
 
 
-def phase_pipeline(dev, seed: int, rate: float, root: str
+def phase_pipeline(dev, seed: int, rate: float, root: str, scale: int
                    ) -> tuple[dict, dict]:
-    """p. The q01 operator pipeline at SF10 on the card. Writes the 4
-    parquet files under ``root`` where pyarrow imports. Returns the
-    report and what phase s reads: the columns, the files (None without
-    pyarrow) and plan (a)'s rows and tree."""
+    """p. The q01 operator pipeline at ``scale`` on the card. Writes the
+    4 parquet files under ``root`` where pyarrow imports. Returns the
+    report and what the later phases read: the scale, the columns, the
+    files (None without pyarrow) and plan (a)'s rows and tree."""
     from auron_tpu_torch import entry as tentry
     from auron_tpu_torch.it import tpcds_data
     from auron_tpu_torch.utils.shapes import bucket_rows
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    drawn = tpcds_data.draw_tables(PIPE_SCALE, seed)
+    drawn = tpcds_data.draw_tables(scale, seed)
     cols = drawn["store_sales"]
     gen_s = time.perf_counter() - t0
     rows = cols["ss_store_sk"][0].size
-    stores = tpcds_data.sizes(PIPE_SCALE)["stores"]
+    stores = tpcds_data.sizes(scale)["stores"]
     domain = bucket_rows(stores)
     oracle = tpcds_data.q01_oracle(cols)
     check(oracle["ss_store_sk"].size == stores, "every store has rows")
@@ -1314,7 +1344,7 @@ def phase_pipeline(dev, seed: int, rate: float, root: str
         f"{on_card['ss_store_sk'][0].size} groups in the CPU's order "
         f"({order_s:.2f} s)")
 
-    out = {"scale": PIPE_SCALE, "rows": rows, "stores": stores,
+    out = {"scale": scale, "rows": rows, "stores": stores,
            "partitions": PIPE_PARTITIONS, "batches": batches,
            "batch_rows": src[0][0].capacity, "generate_s": gen_s,
            "upload_s": upload_s, "row_order_s": order_s,
@@ -1329,7 +1359,8 @@ def phase_pipeline(dev, seed: int, rate: float, root: str
     del src
     torch.cuda.empty_cache()
 
-    for_session = {"cols": cols, "files": None, "sort_rows": sort_rows,
+    for_session = {"scale": scale, "cols": cols, "files": None,
+                   "sort_rows": sort_rows,
                    "sort_plan": out["sort"]["plan"], "batches": batches,
                    "dims": {n: drawn[n] for n in JOIN_DIMENSIONS},
                    "dim_files": None}
@@ -1703,9 +1734,10 @@ def sf1_data(seed: int, root: str) -> tuple[dict, dict]:
 def phase_session(dev, pipe: dict, seed: int, root: str,
                   profile_sf10: bool) -> dict:
     """s. q01, q10, q11 and q13, a keyless aggregate, q02, q12 and q02's
-    full sort through ``Session.read_parquet`` over phase p's 4 files,
+    full sort through ``Session.read_parquet`` over ``pipe``'s 4 files,
     and a query over ``Session.from_arrow`` of the same table, on the
-    card; each profiled once at SF1 (at SF10 with ``profile_sf10``)."""
+    card; each profiled once at SF1 (over ``pipe``'s files with
+    ``profile_sf10``)."""
     import pyarrow as pa
     from auron_tpu_torch import entry as tentry
     from auron_tpu_torch.frontend.dataframe import col
@@ -1727,7 +1759,7 @@ def phase_session(dev, pipe: dict, seed: int, root: str,
     session = Session(device=dev)
     queries = {"q01": tq.q01_dataframe, "q10": tq.q10_dataframe,
                "q11": tq.q11_dataframe, "q13": tq.q13_dataframe}
-    out = {"rows": rows, "oracle_s": oracle_s,
+    out = {"scale": pipe["scale"], "rows": rows, "oracle_s": oracle_s,
            "profile_scale": PIPE_SCALE if profile_sf10 else JOIN_CHECK_SCALE}
     gagg.cuda_sum_count.launches = 0
     for name, fn in queries.items():
@@ -1913,7 +1945,7 @@ def phase_joins(dev, pipe: dict, seed: int, root: str,
                 profile_sf10: bool) -> dict:
     """j. Hash joins and the broadcast exchange through the Session on
     the card: q05 co-partitioned and over a broadcast build side, and
-    q09's anti and semi joins counted, over phase p's SF10 files and the
+    q09's anti and semi joins counted, over ``pipe``'s files and the
     dimension files written beside them, each timed and profiled as
     phase s times and profiles its queries; then every join type over
     co-partitioned sides at SF1 and the right and full joins over a
@@ -1928,7 +1960,8 @@ def phase_joins(dev, pipe: dict, seed: int, root: str,
     rows = cols["ss_store_sk"][0].size
     t0 = time.perf_counter()
     oracles = join_oracles(cols, pipe["dims"])
-    out = {"rows": rows, "oracle_s": time.perf_counter() - t0,
+    out = {"scale": pipe["scale"], "rows": rows,
+           "oracle_s": time.perf_counter() - t0,
            "item_rows": int(pipe["dims"]["item"]["i_item_sk"].size),
            "q09_build_rows": oracles["q09_build_rows"]}
     tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
@@ -2190,12 +2223,11 @@ STRING_PATHS = {"q03": ("sort", "float_sum_inexact"),
 
 def phase_strings(dev, pipe: dict, seed: int, root: str,
                   profile_sf10: bool) -> dict:
-    """t. q03, q04 and q06-q09 through the Session over phase p's SF10
-    files and the customer, item and store tables written beside them:
-    each checked against numpy, timed by its checked run, its host syncs
-    counted, and profiled once at SF1 (at SF10 with ``profile_sf10``).
-    q07 runs over SF1's tables (at SF10 with ``profile_sf10``): at SF10
-    it took ~164 s, and the script keeps inside its 1200 s limit."""
+    """t. q03, q04 and q06-q09 through the Session over ``pipe``'s
+    store_sales files and the customer, item and store tables written
+    beside them: each checked against numpy, timed by its checked run,
+    its host syncs counted, and profiled once at SF1 (over ``pipe``'s
+    files with ``profile_sf10``)."""
     from auron_tpu_torch.frontend.session import Session
     from auron_tpu_torch.it import queries as tq
 
@@ -2206,38 +2238,28 @@ def phase_strings(dev, pipe: dict, seed: int, root: str,
     rows = cols["ss_store_sk"][0].size
     t0 = time.perf_counter()
     oracles = string_oracles(cols, pipe["dims"])
-    out = {"rows": rows, "oracle_s": time.perf_counter() - t0,
+    out = {"scale": pipe["scale"], "rows": rows,
+           "oracle_s": time.perf_counter() - t0,
            "customer_rows": int(pipe["dims"]["customer"]["c_customer_sk"]
                                 .size),
            "item_rows": int(pipe["dims"]["item"]["i_item_sk"].size),
            "store_rows": int(pipe["dims"]["store"]["s_store_sk"].size)}
     tables = {"store_sales": pipe["files"], **pipe["dim_files"]}
     prof_tables = tables if profile_sf10 else sf1_data(seed, root)[1]
-    q07_oracle, q07_rows = oracles["q07"], rows
-    if not profile_sf10:
-        drawn = sf1_data(seed, root)[0]
-        q07_oracle = string_oracles(drawn["store_sales"], {
-            n: drawn[n] for n in JOIN_DIMENSIONS})["q07"]
-        q07_rows = drawn["store_sales"]["ss_store_sk"][0].size
     session = Session(device=dev)
     gagg.cuda_sum_count.launches = 0
     for name in STRING_QUERIES:
         make = getattr(tq, f"{name}_dataframe")
-        run_tables, run_rows = tables, rows
         if name == "q07":
-            run_tables, run_rows = prof_tables, q07_rows
-
-            def verify(t, _s, o=q07_oracle):
+            def verify(t, _s, o=oracles[name]):
                 return check_q07(t, o)
         else:
             def verify(t, _s, o=oracles[name], n=name):
                 return check_session_result(t, o, n)
         out[name] = run_session_query(
-            name, lambda m=make, t=run_tables: m(session, t), verify,
-            run_rows, lambda m=make: m(session, prof_tables), timed=False)
+            name, lambda m=make: m(session, tables), verify, rows,
+            lambda m=make: m(session, prof_tables), timed=False)
         out[name]["profile_scale"] = PIPE_SCALE if profile_sf10 \
-            else JOIN_CHECK_SCALE
-        out[name]["scale"] = PIPE_SCALE if run_tables is tables \
             else JOIN_CHECK_SCALE
         decisions = agg_decisions(session, make(session, tables))
         out[name]["agg_decisions"] = decisions
@@ -2300,7 +2322,7 @@ def phase_expressions(dev, pipe: dict, seed: int, root: str,
               "q14: rows in cat_title order")
         return worst
 
-    out = {"q14": run_session_query(
+    out = {"scale": pipe["scale"], "q14": run_session_query(
         "q14", lambda: tq.q14_dataframe(session, tables), verify, items,
         lambda: tq.q14_dataframe(session, prof_tables), timed=False)}
     del out["q14"]["table"]
@@ -2449,7 +2471,7 @@ def phase_decimals(dev, pipe: dict, seed: int, root: str,
                    profile_sf10: bool) -> dict:
     """d. ``decimal128`` card against CPU; then q15, the decimal money
     aggregates and the wide decimal group key through the Session over
-    phase p's SF10 files, each checked exactly against its Python
+    phase p's files, each checked exactly against its Python
     ``decimal`` oracle (rows, order and result types), timed by its
     checked run, its syncs counted, its AggOps' paths held, and profiled
     once at SF1 (at SF10 with ``profile_sf10``)."""
@@ -2460,7 +2482,7 @@ def phase_decimals(dev, pipe: dict, seed: int, root: str,
     t_phase = time.perf_counter()
     check(pipe["files"] is not None,
           "the decimal phase reads parquet: pyarrow imports")
-    out = {"decimal128": decimal128_checks(dev)}
+    out = {"scale": pipe["scale"], "decimal128": decimal128_checks(dev)}
     cols = pipe["cols"]
     rows = cols["ss_store_sk"][0].size
     t0 = time.perf_counter()
@@ -2802,7 +2824,7 @@ def d2h_sources(fn) -> dict:
 
 def phase_windows(dev, pipe: dict, seed: int, root: str,
                   profile_sf10: bool) -> dict:
-    """w. q16 and rollup_rank through the Session over phase p's SF10
+    """w. q16 and rollup_rank through the Session over ``pipe``'s
     files, each checked against
     its numpy oracle, timed by its checked run, its syncs counted (per
     input batch, and the window operator's own per window batch), its
@@ -2826,7 +2848,8 @@ def phase_windows(dev, pipe: dict, seed: int, root: str,
     oracles = {"q16": q16_window_oracle(cols),
                "rollup_rank": rollup_rank_window_oracle(
                    cols, pipe["dims"]["item"])}
-    out = {"rows": rows, "oracle_s": time.perf_counter() - t0}
+    out = {"scale": pipe["scale"], "rows": rows,
+           "oracle_s": time.perf_counter() - t0}
     queries = {
         "q16": (lambda t: tq.q16_dataframe(session, t),
                 ("ss_store_sk", ["ss_item_sk"], "rev", "rnk", 3)),
@@ -2908,13 +2931,119 @@ def window_sweep(session, files: dict) -> dict:
     return out
 
 
+def phase_suites(dev, root: str) -> dict:
+    """q. The TPC-DS suite at scale SUITE_TPCDS_SCALE and the TPC-H suite
+    at SUITE_TPCH_SCALE, generated under ``root``; their oracles first,
+    in worker processes; then every query in a fresh ``Session`` on the
+    card through ``it.runner``, held against its oracle with the
+    reference's comparator. The DISTINCT queries must raise naming
+    ROADMAP item 16f-c. Then q14 and the slowest query are profiled
+    once."""
+    import pyarrow.parquet as pq
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import runner, tpcds, tpch
+    from auron_tpu_torch.it.comparator import QueryResultComparator
+    from auron_tpu_torch.it.tpcds_queries import QUERIES as DS_QUERIES
+    from auron_tpu_torch.it.tpch_queries import QUERIES as H_QUERIES
+
+    t_phase = time.perf_counter()
+    suites = {"tpch": (tpch, H_QUERIES, SUITE_TPCH_SCALE,
+                       runner.TPCH_TOLERANCE),
+              "tpcds": (tpcds, DS_QUERIES, SUITE_TPCDS_SCALE,
+                        runner.TPCDS_TOLERANCE)}
+    out, files = {}, {}
+    for suite, (gen, queries, scale, _tol) in suites.items():
+        t0 = time.perf_counter()
+        files[suite] = gen.generate(str(Path(root) / suite), scale=scale)
+        out[suite] = {"scale": scale, "generate_s": time.perf_counter() - t0,
+                      "table_rows": {n: sum(pq.read_metadata(f).num_rows
+                                            for f in fs)
+                                     for n, fs in files[suite].items()},
+                      "queries": {}, "refused": []}
+        log(f"{suite} at scale {scale}: {out[suite]['table_rows']}")
+    jobs = [(suite, files[suite], q.name)
+            for suite, (_g, queries, _s, _t) in suites.items()
+            for q in queries if q.name not in SUITE_DISTINCT]
+    t0 = time.perf_counter()
+    expected = runner.suite_oracles(jobs)
+    out["oracles"] = {"host_cores": os.cpu_count(),
+                      "s": time.perf_counter() - t0}
+    log(f"{len(jobs)} oracles in {out['oracles']['s']:.1f} s")
+
+    gagg.cuda_sum_count.launches = 0
+    runs = {}
+    for suite, (_gen, queries, _scale, tolerance) in suites.items():
+        res, tables = out[suite], files[suite]
+        comparator = QueryResultComparator(**tolerance)
+        for q in queries:
+            if q.name in SUITE_DISTINCT:
+                with Session(device=dev) as session:
+                    try:
+                        q.run(session, tables)
+                    except NotImplementedError as e:
+                        check("DISTINCT" in str(e) and "16f-c" in str(e),
+                              f"suites.{q.name} names 16f-c: {e}")
+                    else:
+                        raise RuntimeError(
+                            f"check failed: suites.{q.name} ran, but its "
+                            "DISTINCT aggregate is not ported")
+                res["refused"].append(q.name)
+                continue
+            launches0 = gagg.cuda_sum_count.launches
+            (r,) = runner._run_suite(
+                [q], tables, {q.name: expected[(suite, q.name)]},
+                comparator, device=dev, verbose=False)
+            check(r.ok, f"suites.{suite}.{q.name}: {r.report()}")
+            check(r.rows > 0, f"suites.{suite}.{q.name} returns rows")
+            res["queries"][q.name] = {
+                "ms": r.elapsed_s * 1e3, "oracle_ms": r.oracle_s * 1e3,
+                "rows": r.rows, "host_syncs": r.syncs,
+                "subqueries": r.subqueries, "subquery_ms": r.subquery_ms,
+                "cuda_sum_count_launches":
+                    gagg.cuda_sum_count.launches - launches0}
+            runs[(suite, q.name)] = (q, tables)
+            log(f"{suite}.{q.name}: " + json.dumps(res["queries"][q.name]))
+        qs = res["queries"].values()
+        res.update(passed=len(res["queries"]),
+                   ms=sum(r["ms"] for r in qs),
+                   oracle_ms=sum(r["oracle_ms"] for r in qs),
+                   host_syncs=sum(r["host_syncs"] for r in qs),
+                   subquery_ms=sum(r["subquery_ms"] for r in qs),
+                   launching_queries=[n for n, r in res["queries"].items()
+                                      if r["cuda_sum_count_launches"]])
+        log(f"{suite}: {res['passed']} queries passed in "
+            f"{res['ms'] / 1e3:.1f} s")
+    check(sorted(out["tpcds"]["refused"]) == sorted(SUITE_DISTINCT)
+          and not out["tpch"]["refused"],
+          "the DISTINCT queries alone are refused")
+    check(out["tpcds"]["passed"] == len(DS_QUERIES) - len(SUITE_DISTINCT)
+          and out["tpch"]["passed"] == len(H_QUERIES),
+          "every runnable suite query ran")
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    slowest = max(runs, key=lambda sn: out[sn[0]]["queries"][sn[1]]["ms"])
+    out["profiles"] = {}
+    for suite, name in (("tpcds", "q14"), slowest):
+        q, tables = runs[(suite, name)]
+
+        def once(q=q, tables=tables):
+            with Session(device=dev) as session:
+                q.run(session, tables)
+        p = device_profile(once, iters=1, top=3, host_ops=False, warm=True)
+        out["profiles"][f"{suite}.{name}"] = p
+        log(f"profile {suite}.{name}: " + json.dumps(p))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"suite phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
                         help="seed of the pipeline phase's data")
     parser.add_argument("--profile-at-sf10", action="store_true",
-                        help="profile the Session queries over the SF10 "
-                        "files they are timed on (runs past 1200 s)")
+                        help="run phases p to w at SF10 instead of SF1 and "
+                        "profile their Session queries there (runs past "
+                        "1200 s)")
     args = parser.parse_args()
     card = phase_env()
     dev = torch.device("cuda")
@@ -2928,7 +3057,10 @@ def main() -> int:
     rate = mem_bytes_per_s(name)
     root = tempfile.mkdtemp(prefix=".chip_smoke_parquet_", dir=ROOT)
     try:
-        pipeline, pipe = phase_pipeline(dev, args.seed, rate, root)
+        # the depth cut: SF1 beside phase q, unless --profile-at-sf10
+        pipeline, pipe = phase_pipeline(
+            dev, args.seed, rate, root,
+            PIPE_SCALE if args.profile_at_sf10 else JOIN_CHECK_SCALE)
         session = phase_session(dev, pipe, args.seed, root,
                                 args.profile_at_sf10)
         joins = phase_joins(dev, pipe, args.seed, root,
@@ -2941,9 +3073,10 @@ def main() -> int:
                                   args.profile_at_sf10)
         windows = phase_windows(dev, pipe, args.seed, root,
                                 args.profile_at_sf10)
+        del pipe
+        suites = phase_suites(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    del pipe
     per_size, other = phase_times(dev, stage, rate)
     prof = phase_profile(dev, stage)
     for row in per_size:
@@ -2970,7 +3103,8 @@ def main() -> int:
             "strings": strings["cuda_sum_count_launches"],
             "expressions": expressions["cuda_sum_count_launches"],
             "decimals": decimals["cuda_sum_count_launches"],
-            "windows": windows["cuda_sum_count_launches"]},
+            "windows": windows["cuda_sum_count_launches"],
+            "suites": suites["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -2990,7 +3124,7 @@ def main() -> int:
     report = {"build_s": build_s, "stages": other["stages"],
               "pipeline": pipeline, "session": session, "joins": joins,
               "strings": strings, "expressions": expressions,
-              "decimals": decimals, "windows": windows,
+              "decimals": decimals, "windows": windows, "suites": suites,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

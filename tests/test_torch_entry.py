@@ -271,7 +271,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "auron_tpu_torch.ops.fused, auron_tpu_torch.ops.joins, "
             "auron_tpu_torch.ops.sort, auron_tpu_torch.it.queries, "
             "auron_tpu_torch.it.comparator, auron_tpu_torch.it.runner, "
-            "auron_tpu_torch.ops.strings, auron_tpu_torch.utils.shapes"
+            "auron_tpu_torch.ops.strings, auron_tpu_torch.utils.shapes, "
+            "auron_tpu_torch.ops.subquery, auron_tpu_torch.it.tpcds, "
+            "auron_tpu_torch.it.tpcds_queries, auron_tpu_torch.it.tpch, "
+            "auron_tpu_torch.it.tpch_queries"
             "\nbad = sorted(m for m in "
             "sys.modules if m.split('.')[0]"
             f" in {_FORBIDDEN!r})\nprint(bad)\nsys.exit(1 if bad else 0)")
