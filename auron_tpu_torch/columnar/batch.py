@@ -10,9 +10,17 @@ width]`` with a length per row; its width is a bucket
 (``utils.shapes.bucket_string_width``), and columns of different widths
 are padded to the wider one before they are concatenated. A decimal of
 precision 19..38 is a ``Decimal128Column`` (``columnar/decimal128.py``):
-two int64 limbs and a validity. List, map and struct columns (ROADMAP
-item 16f) are not ported: a column op given one raises
-``NotImplementedError``.
+two int64 limbs and a validity.
+
+Nested columns are padded too: a list is a ``[capacity, max_elems]``
+matrix with element validity, a length and a row validity per row
+(``ListColumn``; ``StringListColumn`` adds a width axis and element
+lengths), a map two such matrices sharing one length column
+(``MapColumn``, ``StringMapColumn``; a list<decimal(p > 18)> rides the
+``MapColumn`` carrier with hi → keys and lo → values), and a struct its
+child columns plus a row validity (``StructColumn``). A null list has
+``validity`` False and length 0; an empty list is valid with length 0;
+a list that holds nulls is valid with some ``elem_valid`` False.
 """
 
 from __future__ import annotations
@@ -62,7 +70,158 @@ class StringColumn:
         return StringColumn(self.chars, self.lens, validity)
 
 
-Column = Union[PrimitiveColumn, StringColumn, Decimal128Column]
+@dataclass(frozen=True)
+class ListColumn:
+    """Padded list-of-primitive column: values[capacity, max_elems],
+    element validity, list lengths and row validity (a null row is a
+    null list)."""
+
+    values: torch.Tensor      # [capacity, max_elems]
+    elem_valid: torch.Tensor  # bool[capacity, max_elems]
+    lens: torch.Tensor        # int32[capacity]
+    validity: torch.Tensor    # bool[capacity]
+
+    @property
+    def capacity(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def max_elems(self) -> int:
+        return self.values.shape[1]
+
+    def with_validity(self, validity: torch.Tensor) -> "ListColumn":
+        return ListColumn(self.values, self.elem_valid, self.lens, validity)
+
+
+@dataclass(frozen=True)
+class StringListColumn:
+    """Padded list-of-string column: chars[capacity, max_elems, width]
+    with a byte length per element."""
+
+    chars: torch.Tensor       # uint8[capacity, max_elems, width]
+    slens: torch.Tensor       # int32[capacity, max_elems]
+    elem_valid: torch.Tensor  # bool[capacity, max_elems]
+    lens: torch.Tensor        # int32[capacity]
+    validity: torch.Tensor    # bool[capacity]
+
+    @property
+    def capacity(self) -> int:
+        return self.chars.shape[0]
+
+    @property
+    def max_elems(self) -> int:
+        return self.chars.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.chars.shape[2]
+
+    def with_validity(self, validity: torch.Tensor) -> "StringListColumn":
+        return StringListColumn(self.chars, self.slens, self.elem_valid,
+                                self.lens, validity)
+
+
+@dataclass(frozen=True)
+class StringMapColumn:
+    """Padded map<string, string> column: key and value char tensors
+    sharing one length column. Map keys are never null, so only values
+    carry an element validity."""
+
+    kchars: torch.Tensor     # uint8[capacity, max_elems, kwidth]
+    kslens: torch.Tensor     # int32[capacity, max_elems]
+    vchars: torch.Tensor     # uint8[capacity, max_elems, vwidth]
+    vslens: torch.Tensor     # int32[capacity, max_elems]
+    val_valid: torch.Tensor  # bool[capacity, max_elems]
+    lens: torch.Tensor       # int32[capacity]
+    validity: torch.Tensor   # bool[capacity]
+
+    @property
+    def capacity(self) -> int:
+        return self.kchars.shape[0]
+
+    @property
+    def max_elems(self) -> int:
+        return self.kchars.shape[1]
+
+    def with_validity(self, validity: torch.Tensor) -> "StringMapColumn":
+        return StringMapColumn(self.kchars, self.kslens, self.vchars,
+                               self.vslens, self.val_valid, self.lens,
+                               validity)
+
+
+@dataclass(frozen=True)
+class MapColumn:
+    """Padded map column: key and value matrices sharing one length
+    column (also the carrier of entry lists and of list<decimal(p >
+    18)>, hi → keys, lo → values)."""
+
+    keys: torch.Tensor       # [capacity, max_elems]
+    values: torch.Tensor     # [capacity, max_elems]
+    val_valid: torch.Tensor  # bool[capacity, max_elems]
+    lens: torch.Tensor       # int32[capacity]
+    validity: torch.Tensor   # bool[capacity]
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def max_elems(self) -> int:
+        return self.keys.shape[1]
+
+    def with_validity(self, validity: torch.Tensor) -> "MapColumn":
+        return MapColumn(self.keys, self.values, self.val_valid, self.lens,
+                         validity)
+
+
+@dataclass(frozen=True)
+class StructColumn:
+    """Struct column: its child columns and a row validity; field names
+    and types live in the schema."""
+
+    children: tuple         # tuple[Column, ...]
+    validity: torch.Tensor  # bool[capacity]
+
+    @property
+    def capacity(self) -> int:
+        return self.validity.shape[0]
+
+    def with_validity(self, validity: torch.Tensor) -> "StructColumn":
+        return StructColumn(self.children, validity)
+
+
+Column = Union[PrimitiveColumn, StringColumn, Decimal128Column, ListColumn,
+               StringListColumn, MapColumn, StringMapColumn, StructColumn]
+
+#: the tensors of each column class, in field order; the row axis is
+#: axis 0 of each, the rest is per-row layout
+_TENSORS = {
+    PrimitiveColumn: ("data", "validity"),
+    StringColumn: ("chars", "lens", "validity"),
+    Decimal128Column: ("hi", "lo", "validity"),
+    ListColumn: ("values", "elem_valid", "lens", "validity"),
+    StringListColumn: ("chars", "slens", "elem_valid", "lens", "validity"),
+    MapColumn: ("keys", "values", "val_valid", "lens", "validity"),
+    StringMapColumn: ("kchars", "kslens", "vchars", "vslens", "val_valid",
+                      "lens", "validity"),
+}
+
+
+def column_tensors(col: Column) -> tuple:
+    """Every tensor of a column, children's first for a struct."""
+    if isinstance(col, StructColumn):
+        return tuple(t for c in col.children for t in column_tensors(c)) \
+            + (col.validity,)
+    return tuple(getattr(col, n) for n in _TENSORS[type(col)])
+
+
+def map_rows(col: Column, fn) -> Column:
+    """``col`` with ``fn`` applied to each of its tensors (row axis
+    first): a slice, a pad or a gather of rows."""
+    if isinstance(col, StructColumn):
+        return StructColumn(tuple(map_rows(c, fn) for c in col.children),
+                            fn(col.validity))
+    return type(col)(*(fn(getattr(col, n)) for n in _TENSORS[type(col)]))
 
 
 @dataclass(frozen=True)
@@ -94,24 +253,9 @@ class DeviceBatch:
         return DeviceBatch(tuple(columns), self.num_rows)
 
 
-def _require_ported(col) -> None:
-    """Raise for the column types the port does not carry yet."""
-    if not isinstance(col, (PrimitiveColumn, StringColumn,
-                            Decimal128Column)):
-        raise NotImplementedError(
-            f"{type(col).__name__}: the port carries primitive, string "
-            "and decimal128 columns only (list, map and struct: ROADMAP "
-            "item 16f-c)")
-
-
 def column_nbytes(col: Column) -> int:
     """Device bytes held by one column (at capacity, incl. padding)."""
-    _require_ported(col)
-    if isinstance(col, StringColumn):
-        return col.chars.nbytes + col.lens.nbytes + col.validity.nbytes
-    if isinstance(col, Decimal128Column):
-        return col.hi.nbytes + col.lo.nbytes + col.validity.nbytes
-    return col.data.nbytes + col.validity.nbytes
+    return sum(t.nbytes for t in column_tensors(col))
 
 
 def batch_nbytes(batch: DeviceBatch) -> int:
@@ -129,9 +273,34 @@ def mask_validity(batch: DeviceBatch) -> DeviceBatch:
 def gather_column(col: Column, indices: torch.Tensor,
                   valid: torch.Tensor) -> Column:
     """Take rows ``indices`` from ``col``; rows where ``valid`` is False
-    become null (a string's length is zeroed there too; a null row that
-    ``valid`` keeps may still hold its chars)."""
-    _require_ported(col)
+    become null (a string's or a list's length is zeroed there too, and
+    a list's element validity; a null row that ``valid`` keeps may still
+    hold its chars)."""
+    if isinstance(col, ListColumn):
+        return ListColumn(col.values[indices],
+                          col.elem_valid[indices] & valid[:, None],
+                          torch.where(valid, col.lens[indices], 0),
+                          col.validity[indices] & valid)
+    if isinstance(col, StringListColumn):
+        return StringListColumn(col.chars[indices], col.slens[indices],
+                                col.elem_valid[indices] & valid[:, None],
+                                torch.where(valid, col.lens[indices], 0),
+                                col.validity[indices] & valid)
+    if isinstance(col, MapColumn):
+        return MapColumn(col.keys[indices], col.values[indices],
+                         col.val_valid[indices] & valid[:, None],
+                         torch.where(valid, col.lens[indices], 0),
+                         col.validity[indices] & valid)
+    if isinstance(col, StringMapColumn):
+        return StringMapColumn(col.kchars[indices], col.kslens[indices],
+                               col.vchars[indices], col.vslens[indices],
+                               col.val_valid[indices] & valid[:, None],
+                               torch.where(valid, col.lens[indices], 0),
+                               col.validity[indices] & valid)
+    if isinstance(col, StructColumn):
+        return StructColumn(tuple(gather_column(c, indices, valid)
+                                  for c in col.children),
+                            col.validity[indices] & valid)
     if isinstance(col, StringColumn):
         return StringColumn(col.chars[indices],
                             torch.where(valid, col.lens[indices], 0),
@@ -182,31 +351,93 @@ def pad_string_width(col: StringColumn, width: int) -> StringColumn:
         col.lens, col.validity)
 
 
+def _pad_axes(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """Zero-pad ``t``'s axes 1.. out to ``sizes``."""
+    pad = []
+    for ax in range(len(sizes), 0, -1):
+        pad += [0, sizes[ax - 1] - t.shape[ax]]
+    if not any(pad):
+        return t
+    return torch.nn.functional.pad(t, pad)
+
+
+def pad_list_elems(col: ListColumn, max_elems: int) -> ListColumn:
+    """Pad a list column's element axis out to ``max_elems`` slots."""
+    if col.max_elems >= max_elems:
+        return col
+    return ListColumn(_pad_axes(col.values, max_elems),
+                      _pad_axes(col.elem_valid, max_elems), col.lens,
+                      col.validity)
+
+
+def pad_map_elems(col: MapColumn, max_elems: int) -> MapColumn:
+    """Pad a map column's entry axis out to ``max_elems`` slots."""
+    if col.max_elems >= max_elems:
+        return col
+    return MapColumn(_pad_axes(col.keys, max_elems),
+                     _pad_axes(col.values, max_elems),
+                     _pad_axes(col.val_valid, max_elems), col.lens,
+                     col.validity)
+
+
 def unify_column_widths(cols: Sequence[Column]) -> list[Column]:
-    """Pad string widths to the max across ``cols`` so they can be
-    concatenated (capacities may differ; widths must not)."""
-    for c in cols:
-        _require_ported(c)
-    if cols and isinstance(cols[0], StringColumn):
+    """Pad string widths and list element counts to the max across
+    ``cols`` so they can be concatenated (capacities may differ; widths
+    must not)."""
+    if not cols:
+        return []
+    c0 = cols[0]
+    if isinstance(c0, StringColumn):
         w = max(c.width for c in cols)
         return [pad_string_width(c, w) for c in cols]
+    if isinstance(c0, ListColumn):
+        m = max(c.max_elems for c in cols)
+        return [pad_list_elems(c, m) for c in cols]
+    if isinstance(c0, MapColumn):
+        m = max(c.max_elems for c in cols)
+        return [pad_map_elems(c, m) for c in cols]
+    if isinstance(c0, StringListColumn):
+        m = max(c.max_elems for c in cols)
+        w = max(c.width for c in cols)
+        return [StringListColumn(_pad_axes(c.chars, m, w),
+                                 _pad_axes(c.slens, m),
+                                 _pad_axes(c.elem_valid, m), c.lens,
+                                 c.validity) for c in cols]
+    if isinstance(c0, StringMapColumn):
+        m = max(c.max_elems for c in cols)
+        kw = max(c.kchars.shape[2] for c in cols)
+        vw = max(c.vchars.shape[2] for c in cols)
+        return [StringMapColumn(_pad_axes(c.kchars, m, kw),
+                                _pad_axes(c.kslens, m),
+                                _pad_axes(c.vchars, m, vw),
+                                _pad_axes(c.vslens, m),
+                                _pad_axes(c.val_valid, m), c.lens,
+                                c.validity) for c in cols]
+    if isinstance(c0, StructColumn):
+        per_child = [unify_column_widths([c.children[i] for c in cols])
+                     for i in range(len(c0.children))]
+        return [StructColumn(tuple(kids[j] for kids in per_child),
+                             c.validity) for j, c in enumerate(cols)]
     return list(cols)
 
 
+def concat_many(cols: Sequence[Column]) -> Column:
+    """Stack columns (capacities add); string widths and list element
+    counts are unified first."""
+    cols = unify_column_widths(cols)
+    c0 = cols[0]
+    if isinstance(c0, StructColumn):
+        return StructColumn(
+            tuple(concat_many([c.children[i] for c in cols])
+                  for i in range(len(c0.children))),
+            torch.cat([c.validity for c in cols]))
+    return type(c0)(*(torch.cat(ts) for ts in
+                      zip(*(column_tensors(c) for c in cols))))
+
+
 def concat_columns(a: Column, b: Column) -> Column:
-    """Stack two columns (capacities add); string widths are unified
-    first."""
-    a, b = unify_column_widths([a, b])
-    if isinstance(a, StringColumn):
-        return StringColumn(torch.cat([a.chars, b.chars]),
-                            torch.cat([a.lens, b.lens]),
-                            torch.cat([a.validity, b.validity]))
-    if isinstance(a, Decimal128Column):
-        return Decimal128Column(torch.cat([a.hi, b.hi]),
-                                torch.cat([a.lo, b.lo]),
-                                torch.cat([a.validity, b.validity]))
-    return PrimitiveColumn(torch.cat([a.data, b.data]),
-                           torch.cat([a.validity, b.validity]))
+    """Stack two columns (capacities add)."""
+    return concat_many([a, b])
 
 
 def resize(batch: DeviceBatch, new_capacity: int) -> DeviceBatch:
@@ -222,15 +453,7 @@ def resize(batch: DeviceBatch, new_capacity: int) -> DeviceBatch:
             return torch.nn.functional.pad(t, pad)
         return t[:new_capacity]
 
-    def resize_col(c: Column) -> Column:
-        _require_ported(c)
-        if isinstance(c, StringColumn):
-            return StringColumn(fit(c.chars), fit(c.lens), fit(c.validity))
-        if isinstance(c, Decimal128Column):
-            return Decimal128Column(fit(c.hi), fit(c.lo), fit(c.validity))
-        return PrimitiveColumn(fit(c.data), fit(c.validity))
-
-    return DeviceBatch(tuple(resize_col(c) for c in batch.columns),
+    return DeviceBatch(tuple(map_rows(c, fit) for c in batch.columns),
                        batch.num_rows)
 
 

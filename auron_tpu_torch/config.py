@@ -150,6 +150,15 @@ FUSION_MAX_STAGE_OPS = _opt(
     "auron.fusion.max_stage_ops", int, 8,
     "Longest operator chain a single fused stage may contain. Longer "
     "chains split into multiple stages.")
+MAP_KEY_DEDUP_POLICY = _opt(
+    "auron.map.key_dedup_policy", str, "LAST_WIN",
+    "Duplicate-key policy of the map constructors (map, create_map, "
+    "map_from_arrays, map_from_entries, map_concat): 'LAST_WIN' keeps "
+    "the last entry per key (Spark's legacy policy, the default); "
+    "'EXCEPTION' (Spark's default) raises a ValueError when a live row "
+    "builds a map with a duplicate key. The port evaluates eagerly, so "
+    "it always raises where the reference, inside a fused stage, nulls "
+    "the offending rows instead.")
 
 
 def file_scan_batch_rows(conf: "AuronConfig", device) -> int:

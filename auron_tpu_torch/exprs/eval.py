@@ -11,9 +11,10 @@ three string predicates, the scalar functions of ``exprs/functions.py``,
 float, decimal, date, timestamp and string. Null semantics follow
 Spark/SQL: arithmetic and comparisons propagate null, ``x / 0`` and
 ``x % 0`` are null, ``and``/``or`` are three-valued, and a cast that
-fails gives null (or raises, for an ANSI cast from a string). Nested
-columns (ROADMAP item 16f) and the nodes of item 17b raise
-``NotImplementedError`` naming their item.
+fails gives null (or raises, for an ANSI cast from a string). Over
+nested columns: ``list[i]`` (``GetIndexedField``, null past the end)
+and ``struct.field`` (``GetStructField``, null where the struct is);
+the nodes of ROADMAP item 17b raise ``NotImplementedError`` naming it.
 
 Decimals follow Spark's types (``decimal_result_type``, with
 ``allowPrecisionLoss``): ``+ - *`` and the comparisons run on the
@@ -43,8 +44,11 @@ import torch
 
 from auron_tpu_torch.columnar import decimal128 as D
 from auron_tpu_torch.columnar.batch import (Column, Decimal128Column,
-                                            DeviceBatch, PrimitiveColumn,
-                                            StringColumn, pad_string_width)
+                                            DeviceBatch, ListColumn,
+                                            MapColumn, PrimitiveColumn,
+                                            StringColumn, StringListColumn,
+                                            StringMapColumn, StructColumn,
+                                            pad_string_width)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.host import decode, host_map, np_dtype
@@ -85,11 +89,6 @@ _RANK = [DataType.INT8, DataType.INT16, DataType.INT32, DataType.INT64,
 
 _INT_BITS = {DataType.INT8: 8, DataType.INT16: 16, DataType.INT32: 32,
              DataType.INT64: 64}
-
-#: field types ``null_column_for_field`` pads with a primitive column
-_PRIMITIVE_FIELDS = frozenset(_RANK) | {DataType.BOOL, DataType.DATE32,
-                                        DataType.TIMESTAMP_US, DataType.NULL,
-                                        DataType.DECIMAL}
 
 _COMPARE = {"==": torch.eq, "!=": torch.ne, "<": torch.lt,
             "<=": torch.le, ">": torch.gt, ">=": torch.ge}
@@ -177,26 +176,36 @@ def null_column_for_field(field: Field, cap: int,
                           device: torch.device) -> Column:
     """An all-null column of ``cap`` rows shaped for ``field``: the
     padding of outer joins (a string is 8 bytes wide, as in the
-    reference; a decimal of precision > 18 two limbs). Nested fields
-    come with those columns."""
-    if field.dtype == DataType.STRING:
-        return StringColumn(
-            torch.zeros((cap, 8), dtype=torch.uint8, device=device),
-            torch.zeros(cap, dtype=torch.int32, device=device),
-            torch.zeros(cap, dtype=torch.bool, device=device))
-    if field.dtype == DataType.DECIMAL and field.precision > 18:
-        return Decimal128Column(
-            torch.zeros(cap, dtype=torch.int64, device=device),
-            torch.zeros(cap, dtype=torch.int64, device=device),
-            torch.zeros(cap, dtype=torch.bool, device=device))
-    if field.dtype not in _PRIMITIVE_FIELDS:
-        raise NotImplementedError(
-            f"null column of {field.dtype.value}: the port carries "
-            "primitive, string and decimal columns only (nested types: "
-            "ROADMAP item 16f)")
-    return PrimitiveColumn(
-        torch.zeros(cap, dtype=field.dtype.to_torch(), device=device),
-        torch.zeros(cap, dtype=torch.bool, device=device))
+    reference; a decimal of precision > 18 two limbs; a list or map one
+    element slot; a struct its all-null children)."""
+    def z(*shape, dtype=torch.bool):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    i32, u8 = torch.int32, torch.uint8
+    dt = field.dtype
+    if dt == DataType.STRING:
+        return StringColumn(z(cap, 8, dtype=u8), z(cap, dtype=i32), z(cap))
+    if dt == DataType.DECIMAL and field.precision > 18:
+        return Decimal128Column(z(cap, dtype=torch.int64),
+                                z(cap, dtype=torch.int64), z(cap))
+    if dt == DataType.MAP and field.key == DataType.STRING:
+        return StringMapColumn(z(cap, 1, 8, dtype=u8), z(cap, 1, dtype=i32),
+                               z(cap, 1, 8, dtype=u8), z(cap, 1, dtype=i32),
+                               z(cap, 1), z(cap, dtype=i32), z(cap))
+    if dt == DataType.LIST and field.elem == DataType.STRING:
+        return StringListColumn(z(cap, 1, 8, dtype=u8), z(cap, 1, dtype=i32),
+                                z(cap, 1), z(cap, dtype=i32), z(cap))
+    if dt == DataType.LIST:
+        return ListColumn(z(cap, 1, dtype=field.elem.to_torch()), z(cap, 1),
+                          z(cap, dtype=i32), z(cap))
+    if dt == DataType.MAP:
+        return MapColumn(z(cap, 1, dtype=field.key.to_torch()),
+                         z(cap, 1, dtype=field.elem.to_torch()), z(cap, 1),
+                         z(cap, dtype=i32), z(cap))
+    if dt == DataType.STRUCT:
+        return StructColumn(tuple(null_column_for_field(cf, cap, device)
+                                  for cf in field.children), z(cap))
+    return PrimitiveColumn(z(cap, dtype=dt.to_torch()), z(cap))
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +314,39 @@ def _evaluate(expr: ir.Expr, batch: DeviceBatch, schema: Schema,
             from auron_tpu_torch.exprs.fn_strings import split_index
             return split_index(expr.child.args, expr.ordinal, batch,
                                schema, ctx)
-        raise NotImplementedError(
-            "GetIndexedField over a list column: the port carries no "
-            "list columns (ROADMAP item 16f)")
+        return _get_indexed(expr, evaluate(expr.child, batch, schema, ctx),
+                            schema)
+
+    if isinstance(expr, ir.GetStructField):
+        v = evaluate(expr.child, batch, schema, ctx)
+        if not isinstance(v.col, StructColumn):
+            raise TypeError("GetStructField needs a struct")
+        child = v.col.children[expr.ordinal]
+        cf = infer_field(expr.child, schema).children[expr.ordinal]
+        return TypedValue(child.with_validity(child.validity & v.validity),
+                          cf.dtype, cf.precision, cf.scale)
 
     raise NotImplementedError(f"expression {type(expr).__name__}")
+
+
+def _get_indexed(expr: ir.GetIndexedField, v: TypedValue,
+                 schema: Schema) -> TypedValue:
+    """``list[i]`` (0-based): null where the list is null, shorter than
+    i + 1, or holds a null there."""
+    col = v.col
+    if not isinstance(col, (ListColumn, StringListColumn)):
+        raise TypeError("GetIndexedField needs a list")
+    i = expr.ordinal
+    in_range = (i >= 0) & (i < col.lens)
+    idx = min(max(i, 0), col.max_elems - 1)
+    valid = col.validity & in_range & col.elem_valid[:, idx]
+    if isinstance(col, StringListColumn):
+        return TypedValue(StringColumn(col.chars[:, idx],
+                                       torch.where(valid, col.slens[:, idx],
+                                                   0), valid),
+                          DataType.STRING)
+    return TypedValue(PrimitiveColumn(col.values[:, idx], valid),
+                      infer_dtype(expr, schema)[0])
 
 
 def _wide_literal(value, cap: int, device) -> Decimal128Column:
@@ -363,19 +400,49 @@ def infer_dtype(expr: ir.Expr, schema: Schema) -> tuple[DataType, int, int]:
     if isinstance(expr, ir.GetIndexedField):
         if _is_split(expr.child):
             return DataType.STRING, 0, 0
-        raise NotImplementedError(
-            "GetIndexedField over a list column (ROADMAP item 16f)")
+        if infer_dtype(expr.child, schema)[0] != DataType.LIST:
+            raise NotImplementedError("GetIndexedField on non-column list")
+        if isinstance(expr.child, ir.ColumnRef):
+            return schema[expr.child.index].elem, 0, 0
+        from auron_tpu_torch.exprs.fn_arrays import elem_dtype_of
+        return elem_dtype_of(expr.child, schema), 0, 0
+    if isinstance(expr, ir.GetStructField):
+        cf = infer_field(expr.child, schema).children[expr.ordinal]
+        return cf.dtype, cf.precision, cf.scale
     raise NotImplementedError(f"infer_dtype for {type(expr).__name__}")
 
 
 def infer_field(expr: ir.Expr, schema: Schema, name: str = "c") -> Field:
-    """Result field of an expression: the input field itself for a
-    column reference (its metadata kept), else a nullable field of the
-    inferred type. Nested results come with the slices that have them."""
+    """Result field of an expression, nested-aware: the input field
+    itself for a column reference, a function's own result field where
+    it has one (list and map element types, struct children), else a
+    nullable field of the inferred type."""
     if isinstance(expr, ir.ColumnRef):
         return schema[expr.index].with_name(name)
+    if isinstance(expr, ir.ScalarFunction):
+        from auron_tpu_torch.exprs.functions import function_result_field
+        f = function_result_field(expr, schema)
+        if f is not None:
+            return f.with_name(name)
+    if isinstance(expr, ir.GetStructField):
+        return infer_field(expr.child, schema).children[expr.ordinal] \
+            .with_name(name)
+    if isinstance(expr, ir.CaseWhen) and expr.otherwise is not None:
+        f = infer_field(expr.otherwise, schema)
+        if f.dtype in (DataType.MAP, DataType.STRUCT, DataType.LIST):
+            return f.with_name(name)
     dt, p, s = infer_dtype(expr, schema)
-    return Field(name, dt, True, p, s)
+    if dt in (DataType.MAP, DataType.STRUCT):
+        raise NotImplementedError(
+            f"cannot infer nested ({dt.value}) result metadata for "
+            f"{type(expr).__name__}; add an explicit typed branch "
+            "(e.g. an 'otherwise' arm) or project the nested column "
+            "directly")
+    elem = None
+    if dt == DataType.LIST and isinstance(expr, ir.ScalarFunction):
+        from auron_tpu_torch.exprs.fn_arrays import elem_dtype_of
+        elem = elem_dtype_of(expr, schema)
+    return Field(name, dt, True, p, s, elem=elem)
 
 
 # ---------------------------------------------------------------------------

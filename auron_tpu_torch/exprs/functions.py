@@ -3,11 +3,11 @@
 The port of ``auron_tpu.exprs.functions``: the Spark-exact scalar
 functions over dates, numbers, nulls, strings and hashes. Each takes its
 evaluated ``TypedValue`` arguments and returns a ``TypedValue``, as a few
-eager tensor ops on the batch's device. Importing ``fn_strings`` and
-``fn_dates`` at the end fills in the rest of the registry. The
-reference's array, map and struct functions (ROADMAP item 16f) and its
-crypto, json and regex functions (17b) are not registered: a plan that
-calls one raises ``NotImplementedError`` naming its item.
+eager tensor ops on the batch's device. Importing ``fn_strings``,
+``fn_dates``, ``fn_arrays`` and ``fn_structs`` at the end fills in the
+rest of the registry. The reference's crypto, json and regex functions
+(ROADMAP item 17b) are not registered: a plan that calls one raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -33,30 +33,33 @@ _RESULT_TYPE = {}
 
 #: the reference's names that the port does not register yet, with the
 #: ROADMAP item that brings each
-LATER = {
-    **{name: "16f" for name in (
-        "array", "size", "cardinality", "array_contains", "array_position",
-        "element_at", "get_map_value", "array_max", "array_min",
-        "sort_array", "array_repeat", "map", "create_map",
-        "map_from_arrays", "map_keys", "map_values", "map_entries",
-        "map_from_entries", "map_contains_key", "map_concat",
-        "array_distinct", "array_union", "array_intersect", "array_except",
-        "arrays_overlap", "split", "array_join", "str_to_map",
-        "named_struct", "struct", "get_struct_field")},
-    **{name: "17b" for name in (
-        "md5", "sha1", "sha2", "crc32", "base64", "unbase64", "hex",
-        "unhex", "get_json_object", "json_array_length", "regexp_extract",
-        "regexp_replace", "rlike", "regexp_like", "regexp")},
-}
+LATER = {name: "17b" for name in (
+    "md5", "sha1", "sha2", "crc32", "base64", "unbase64", "hex", "unhex",
+    "get_json_object", "json_array_length", "regexp_extract",
+    "regexp_replace", "rlike", "regexp_like", "regexp")}
+
+#: name → callable(expr, schema) -> Field, for the functions whose
+#: result is nested (a list, map or struct) and so not described by
+#: (dtype, precision, scale) alone
+_RESULT_FIELD = {}
 
 
-def register(name, result_type=None):
+def register(name, result_type=None, result_field=None):
     def deco(fn):
         _REGISTRY[name] = fn
         if result_type is not None:
             _RESULT_TYPE[name] = result_type
+        if result_field is not None:
+            _RESULT_FIELD[name] = result_field
         return fn
     return deco
+
+
+def function_result_field(expr: ir.ScalarFunction, schema: Schema):
+    """The full result Field of a nested-valued function; None where
+    (dtype, precision, scale) is the whole story."""
+    rf = _RESULT_FIELD.get(expr.name)
+    return rf(expr, schema) if rf is not None else None
 
 
 def _later(name: str) -> NotImplementedError:
@@ -716,3 +719,5 @@ def _xxhash64(args, expr, batch, schema, ctx):
 # importing these modules fills in the rest of the registry
 from auron_tpu_torch.exprs import fn_dates    # noqa: E402,F401
 from auron_tpu_torch.exprs import fn_strings  # noqa: E402,F401
+from auron_tpu_torch.exprs import fn_arrays   # noqa: E402,F401
+from auron_tpu_torch.exprs import fn_structs  # noqa: E402,F401

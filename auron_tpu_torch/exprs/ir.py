@@ -4,7 +4,7 @@ A copy of the scalar nodes of ``auron_tpu.exprs.ir``: frozen dataclass
 trees, hashable and comparable, with the same fields, so a tree built for
 one package reads the same in the other. The reference's bloom-filter
 probe, scalar subquery, row-number, partition-id, monotonic-id and host
-UDF nodes (ROADMAP item 17b) and struct field access (16f) are not here.
+UDF nodes (ROADMAP item 17b) are not here.
 """
 
 from __future__ import annotations
@@ -174,8 +174,17 @@ class ScalarFunction(Expr):
 
 @dataclass(frozen=True)
 class GetIndexedField(Expr):
-    """list[ordinal] element access, 0-based; the port evaluates it over
-    ``split(...)`` only."""
+    """list[ordinal] element access, 0-based."""
+    child: Expr
+    ordinal: int
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class GetStructField(Expr):
+    """struct.field access by child ordinal (Spark's GetStructField)."""
     child: Expr
     ordinal: int
 
@@ -209,7 +218,8 @@ class SortOrder:
 class AggFunction:
     """One aggregate: fn in {sum,count,avg,min,max,first,first_ignores_null,
     count_star, bloom_filter, collect_list, collect_set}; the port's
-    AggOp runs sum, count, count_star, avg, min, max and first."""
+    AggOp runs all but bloom_filter, DISTINCT count, sum and avg
+    included."""
     fn: str
     arg: Optional[Expr] = None     # None for count(*)
     distinct: bool = False

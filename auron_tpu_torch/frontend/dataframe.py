@@ -4,9 +4,10 @@ The port of ``auron_tpu.frontend.dataframe`` for the expressions and
 transforms the port can run. Unresolved column names resolve against
 the child's schema when a transform is built. A DataFrame serializes to
 the same ``TaskDefinition`` bytes as the reference's for the same
-query; what the port cannot plan yet (DISTINCT aggregates, host
-functions, the scalar functions of ROADMAP items 16f and 17b) raises
-``NotImplementedError`` or is absent. Uncorrelated scalar subqueries
+query; what the port cannot plan yet (host functions, the scalar
+functions of ROADMAP item 17b) raises ``NotImplementedError`` or is
+absent. Aggregates take DISTINCT and ``collect_list``/``collect_set``;
+``explode`` and ``posexplode`` build the generate node. Uncorrelated scalar subqueries
 (``scalar_subquery``) resolve once per task in ``ops/subquery.py``'s
 binder. Window functions
 (``DataFrame.window`` with the builders on ``functions``) and grouping
@@ -28,7 +29,7 @@ from typing import Any, Callable, Optional, Sequence, Union
 
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
-from auron_tpu_torch.exprs.eval import infer_dtype
+from auron_tpu_torch.exprs.eval import infer_dtype, infer_field
 from auron_tpu_torch.ir import auron_pb2 as pb
 from auron_tpu_torch.ir import serde
 
@@ -322,28 +323,75 @@ functions = _Functions()
 # DataFrame
 # ---------------------------------------------------------------------------
 
+_NESTED = (DataType.LIST, DataType.MAP, DataType.STRUCT)
+
+
 class GroupedData:
     def __init__(self, df: "DataFrame", keys: Sequence[Col]):
         self.df = df
         self.keys = [_wrap(k) for k in keys]
 
+    def _rewrite_wide_distinct(self, aggs) -> Optional["DataFrame"]:
+        """count, sum or avg DISTINCT over a decimal, as the reference
+        plans it: an inner regroup on (keys..., arg) dedupes the pairs,
+        then the plain decimal aggregate runs over the deduped rows with
+        Spark's exact result types (sum → decimal(p + 10, s), avg →
+        decimal(p + 4, s + 4) HALF_UP). The set accumulator cannot: its
+        single word holds no p > 18 value, and its finalizers lose the
+        decimal type. A narrow count DISTINCT alone stays on the set.
+        None when no aggregate needs the rewrite."""
+        schema = self.df.schema
+
+        def dec_info(a: AggCol):
+            """(rewritable, needed) of one aggregate."""
+            if not (a.distinct and a.fn in ("count", "sum", "avg")
+                    and a.arg is not None):
+                return False, False
+            dt, p, _s = infer_dtype(resolve(a.arg, schema), schema)
+            if dt != DataType.DECIMAL:
+                return False, False
+            return True, (p > 18 or a.fn in ("sum", "avg"))
+
+        infos = [dec_info(a) for a in aggs]
+        if not any(needs for _r, needs in infos):
+            return None
+        dec = [a for a, (r, _n) in zip(aggs, infos) if r]
+        if len(dec) != len(aggs):
+            raise NotImplementedError(
+                "DISTINCT over decimal cannot be mixed with other "
+                "aggregates in one agg() call: the distinct regroup "
+                "rewrite would dedupe the other aggregates' input rows. "
+                "Split the decimal-distinct aggregates into their own "
+                "agg().")
+        if len({repr(resolve(a.arg, schema)) for a in dec}) > 1:
+            raise NotImplementedError(
+                "decimal DISTINCT aggregates in one agg() call must "
+                "share one argument expression (one regroup dedupes one "
+                "column); split differing arguments into separate agg()s.")
+        dcol = dec[0].arg.alias("__wd_arg__")
+        inner = GroupedData(self.df, list(self.keys) + [dcol]).agg()
+        key_names = [k.out_name(f"k{i}") for i, k in enumerate(self.keys)]
+        outer_aggs = [AggCol(a.fn, col("__wd_arg__"), name=a.out_name(i))
+                      for i, a in enumerate(dec)]
+        return GroupedData(inner, [col(n) for n in key_names]).agg(
+            *outer_aggs)
+
     def agg(self, *aggs: AggCol) -> "DataFrame":
         """The reference's plan: over several partitions a partial agg on
         every map partition → exchange (hash on the keys; single for a
-        global agg) → final agg; over one partition a complete agg."""
+        global agg) → final agg; over one partition a complete agg.
+        DISTINCT over a decimal first regroups
+        (``_rewrite_wide_distinct``)."""
         from auron_tpu_torch.ops.agg import make_acc_spec
-        distinct = [a.fn for a in aggs if a.distinct]
-        if distinct:
-            raise NotImplementedError(
-                f"DISTINCT aggregates ({', '.join(distinct)}): their "
-                "collect_set state needs the list columns of ROADMAP item "
-                "16f-c")
+        rewritten = self._rewrite_wide_distinct(aggs)
+        if rewritten is not None:
+            return rewritten
         schema = self.df.schema
         group_exprs = [resolve(k, schema) for k in self.keys]
         group_names = [k.out_name(f"k{i}") for i, k in enumerate(self.keys)]
         agg_fns = [ir.AggFunction(
-            a.fn, resolve(a.arg, schema) if a.arg is not None else None)
-            for a in aggs]
+            a.fn, resolve(a.arg, schema) if a.arg is not None else None,
+            a.distinct) for a in aggs]
         agg_names = [a.out_name(i) for i, a in enumerate(aggs)]
         n_keys = len(group_exprs)
         n_part = self.df.num_partitions
@@ -373,8 +421,9 @@ class GroupedData:
                 child=shuffle,
                 group_exprs=[serde.expr_to_proto(ir.ColumnRef(i))
                              for i in range(n_keys)],
-                aggs=[serde.agg_to_proto(ir.AggFunction(a.fn))
-                      for a in agg_fns],
+                aggs=[serde.agg_to_proto(
+                    ir.AggFunction(a.fn, None, a.distinct))
+                    for a in agg_fns],
                 mode="final", group_names=group_names,
                 agg_names=agg_names))
         else:
@@ -388,10 +437,13 @@ class GroupedData:
         fields = []
         for e, nm in zip(group_exprs, group_names):
             dt, p, s = infer_dtype(e, schema)
-            fields.append(Field(nm, dt, True, p, s))
+            # a nested key keeps its metadata (a struct key's fields)
+            fields.append(infer_field(e, schema, nm) if dt in _NESTED
+                          else Field(nm, dt, True, p, s))
         for a, nm in zip(agg_fns, agg_names):
-            dt, p, s = make_acc_spec(a, schema, "complete").result
-            fields.append(Field(nm, dt, True, p, s))
+            spec = make_acc_spec(a, schema, "complete")
+            dt, p, s = spec.result
+            fields.append(Field(nm, dt, True, p, s, elem=spec.elem))
         return DataFrame(self.df.session, node, Schema(tuple(fields)),
                          out_partitions, out_prov)
 
@@ -444,7 +496,10 @@ class DataFrame:
         fields = []
         for e, nm in zip(exprs, names):
             dt, p, s = infer_dtype(e, self.schema)
-            fields.append(Field(nm, dt, True, p, s))
+            # a nested column keeps its metadata (list elements, struct
+            # fields) for the transforms after it
+            fields.append(infer_field(e, self.schema, nm) if dt in _NESTED
+                          else Field(nm, dt, True, p, s))
         return DataFrame(self.session, node, Schema(tuple(fields)),
                          self.num_partitions,
                          self._project_provenance(exprs, names))
@@ -733,6 +788,36 @@ class DataFrame:
                            self.partitioning)
         return joined.select(*[Col(ir.ColumnRef(i, raw[i].name),
                                    raw[i].name) for i in keep])
+
+    def explode(self, c: Union[str, Col], outer: bool = False,
+                keep: Optional[Sequence[str]] = None) -> "DataFrame":
+        """One row per element of the list ``c``, as column ``col``, with
+        the columns ``keep`` (default: all) repeated. ``outer`` keeps a
+        row with a null element for a null or empty list."""
+        return self._generate("explode", c, outer, keep)
+
+    def posexplode(self, c: Union[str, Col], outer: bool = False,
+                   keep: Optional[Sequence[str]] = None) -> "DataFrame":
+        """``explode`` with each element's 0-based position as column
+        ``pos`` before it (null on an ``outer`` row). The reference's DSL
+        has no builder for it; its plan node is the same."""
+        return self._generate("posexplode", c, outer, keep)
+
+    def _generate(self, kind: str, c, outer: bool, keep) -> "DataFrame":
+        cc = col(c) if isinstance(c, str) else c
+        gen = resolve(cc, self.schema)
+        keep_idx = ([self.schema.index_of(k) for k in keep]
+                    if keep is not None else list(range(len(self.schema))))
+        node = pb.PlanNode(generate=pb.GenerateNode(
+            child=self.plan, kind=kind, generator=serde.expr_to_proto(gen),
+            required_child_output=keep_idx, outer=outer))
+        from auron_tpu_torch.ops.generate import element_field
+        fields = tuple(self.schema[i] for i in keep_idx)
+        if kind == "posexplode":
+            fields += (Field("pos", DataType.INT64, False),)
+        fields += (element_field(gen, self.schema),)
+        return DataFrame(self.session, node, Schema(fields),
+                         self.num_partitions)
 
     def repartition(self, n: int, *keys: Union[str, Col]) -> "DataFrame":
         if keys:

@@ -109,8 +109,8 @@ def dtype_name(dt: torch.dtype) -> str:
 def key_meta(cols) -> tuple:
     """Static per-column codec descriptor, enough to rebuild an empty
     store: ``("prim", dtype)``, ``("str", width)`` or ``("dec",)``.
-    Raises NotImplementedError for columns without a word encoding in
-    the port (nested types)."""
+    Raises NotImplementedError for columns without a word encoding
+    (nested types, which the dispatch keeps on the sort path)."""
     meta = []
     for c in cols:
         if isinstance(c, StringColumn):
@@ -121,9 +121,7 @@ def key_meta(cols) -> tuple:
             meta.append(("prim", dtype_name(c.data.dtype)))
         else:
             raise NotImplementedError(
-                f"hashtable keys of {type(c).__name__} are not supported: "
-                "the port encodes primitive, string and decimal key "
-                "columns (nested keys: ROADMAP item 16f)")
+                f"hashtable keys of {type(c).__name__} are not supported")
     return tuple(meta)
 
 

@@ -313,6 +313,17 @@ class PhysicalPlanner:
             list(n.names) or None,
         )
 
+    def _plan_generate(self, n: pb.GenerateNode) -> PhysicalOp:
+        from auron_tpu_torch.ops.generate import GenerateOp
+        return GenerateOp(
+            self.create_plan(n.child), kind=n.kind,
+            generator=serde.parse_expr(n.generator)
+            if n.HasField("generator") else None,
+            json_fields=list(n.json_fields),
+            udtf_name=n.udtf_registry_name or None,
+            required_child_output=list(n.required_child_output),
+            outer=n.outer, output_names=list(n.output_names) or None)
+
     # -- joins --------------------------------------------------------------
 
     def _plan_hash_join(self, n: pb.HashJoinNode) -> PhysicalOp:
@@ -326,7 +337,7 @@ class PhysicalPlanner:
     def _plan_sort_merge_join(self, n: pb.SortMergeJoinNode) -> PhysicalOp:
         raise NotImplementedError(
             "plan node 'sort_merge_join': SortMergeJoinOp comes with ROADMAP "
-            "item 16f")
+            "item 18")
 
     def _plan_broadcast_join(self, n: pb.BroadcastJoinNode) -> PhysicalOp:
         raise NotImplementedError(

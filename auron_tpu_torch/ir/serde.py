@@ -88,7 +88,7 @@ _PARSE_STRING_PRED = {kind: cls for cls, (kind, _) in _STRING_PRED.items()}
 #: expression kinds of the proto the port does not evaluate, with the
 #: ROADMAP item that brings each
 _UNPORTED_KINDS = {"nullary": "17b", "host_udf": "17b",
-                   "bloom_might_contain": "17b", "get_struct_field": "16f"}
+                   "bloom_might_contain": "17b"}
 _PARSE_UNARY = {v: k for k, v in _UNARY.items()}
 
 
@@ -175,6 +175,9 @@ def expr_to_proto(e: ir.Expr) -> pb.ExprNode:
     if isinstance(e, ir.GetIndexedField):
         return pb.ExprNode(get_indexed_field=pb.GetIndexedFieldE(
             child=expr_to_proto(e.child), ordinal=e.ordinal))
+    if isinstance(e, ir.GetStructField):
+        return pb.ExprNode(get_struct_field=pb.GetStructFieldE(
+            child=expr_to_proto(e.child), ordinal=e.ordinal))
     if isinstance(e, ir.ScalarSubquery):
         return pb.ExprNode(scalar_subquery=pb.ScalarSubqueryE(
             plan=pb.PlanNode.FromString(e.plan_bytes),
@@ -241,6 +244,9 @@ def parse_expr(p: pb.ExprNode) -> ir.Expr:
     if kind == "get_indexed_field":
         return ir.GetIndexedField(parse_expr(p.get_indexed_field.child),
                                   p.get_indexed_field.ordinal)
+    if kind == "get_struct_field":
+        return ir.GetStructField(parse_expr(p.get_struct_field.child),
+                                 p.get_struct_field.ordinal)
     if kind == "scalar_subquery":
         q = p.scalar_subquery
         return ir.ScalarSubquery(q.plan.SerializeToString(),

@@ -46,13 +46,31 @@ division (``decimal128.avg_pow10_div_half_up``). These kinds are not
 the hash table's: the dispatch keeps them on the sort path
 (``acc_kind:dsum``).
 
+``collect_list`` and ``collect_set`` carry a padded list accumulator
+(values[cap, E], lens[cap]; over a decimal(p > 18) the limb pair
+(hi[cap, E], lo[cap, E], lens[cap]), the ``_DCOLLECT`` kinds) through
+the same reduce: each row's elements scatter to their group's next free
+slots, one extra sink slot taking the rest. A set then dedupes per
+group: a stable sort by value (``utils.float_order.sort_key``, the order
+XLA's sort gives: ``-0.0`` ties ``0.0``, NaN last), then by padding, and
+the first of each run under ``!=`` stays, so every NaN is kept and
+``-0.0`` and ``0.0`` merge into whichever sorted first. A group that
+needs more than E slots fails the step's check and the step runs again
+with E at the next power of two (``_grow_check``; ``grow_retries``
+counts them). DISTINCT count, sum and avg ride the set accumulator and
+finalize off the set; min, max and first ignore DISTINCT. Groups with
+only nulls collect an empty list. These kinds stay on the sort path
+(the dispatch's ``acc_kind:collect_set``), and a table of collect state
+shrinks to its groups' bucket rather than to ``initial_capacity``, so a
+global set of E elements costs E slots, not ``initial_capacity * E``.
+
 Host syncs: each step that needs a group count on the host — the batch
-reduce, a merge, the dense emit, a hash-table update — reads all its
-control scalars in one ``ops.base.host_readback``. The spill tier, the
-host-side aggregates (bloom filter, UDAF), collect_list/set and
-DISTINCT are not ported: they raise ``NotImplementedError`` naming the
-feature (DISTINCT and collect over decimals: ROADMAP item 16f; the
-spill of decimal state: 18).
+reduce, a merge (and each of its growth retries), the dense emit, a
+hash-table update — reads all its control scalars in one
+``ops.base.host_readback``. The spill tier and the host-side aggregates
+(bloom filter, UDAF) are not ported: they raise
+``NotImplementedError`` naming the feature (the spill of decimal state:
+ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -65,9 +83,10 @@ import torch
 from auron_tpu_torch import config as cfg
 from auron_tpu_torch.columnar import decimal128 as D
 from auron_tpu_torch.columnar.batch import (Decimal128Column, DeviceBatch,
+                                            ListColumn, MapColumn,
                                             PrimitiveColumn, StringColumn,
-                                            gather_column,
-                                            unify_column_widths)
+                                            concat_columns, gather_column,
+                                            map_rows, unify_column_widths)
 from auron_tpu_torch.columnar.schema import DataType, Field, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import (EvalContext, evaluate, infer_dtype,
@@ -76,8 +95,9 @@ from auron_tpu_torch.ops import hashing
 from auron_tpu_torch.ops.base import (ExecContext, PhysicalOp, count_output,
                                       host_readback, timer)
 from auron_tpu_torch.ops.sort import order_words
-from auron_tpu_torch.utils.float_order import min_max, scatter_min_max
-from auron_tpu_torch.utils.shapes import bucket_rows
+from auron_tpu_torch.utils.float_order import (min_max, scatter_min_max,
+                                               sort_key)
+from auron_tpu_torch.utils.shapes import bucket_rows, next_pow2
 
 # ---------------------------------------------------------------------------
 # accumulator specs
@@ -102,6 +122,15 @@ _STR_KINDS = ("smin", "smax", "sfirst", "sfirst_ign")
 #: is a pair (hi[cap], lo[cap]) of int64 limbs
 _DEC_KINDS = ("dsum", "dmin", "dmax", "dfirst")
 
+#: collect kinds over single-word values; their accumulator is the
+#: padded list (values[cap, E], lens[cap])
+_COLLECT = ("collect_list", "collect_set")
+
+#: collect kinds over two-limb decimal(p > 18) values; their accumulator
+#: is (hi[cap, E], lo[cap, E], lens[cap]), and their state and result
+#: columns ride the MapColumn carrier (hi → keys, lo → values)
+_DCOLLECT = ("dcollect_list", "dcollect_set")
+
 #: the limb-pair neutrals: dmin's is 2^127 - 1 (hi = INT64_MAX, lo all
 #: ones), dmax's -2^127; decimals stay below 10^38 < 2^127, so neither
 #: collides with a value
@@ -120,11 +149,13 @@ class AccSpec:
     state column whose type is not the result's (avg's sum accumulates
     at the input scale; the count field carries the result's (p, s), so
     a final agg rebuilt from the partial schema recovers the type);
-    None means the result's."""
+    None means the result's. ``elem``: a collect's element type (its
+    (p, s) ride the LIST result's slots)."""
     fn: str
     state_fields: tuple
     result: tuple  # (dtype, precision, scale)
     state_ps: Optional[tuple] = None
+    elem: Optional[DataType] = None
 
 
 def decimal_avg_result(p: int, s: int) -> tuple[int, int]:
@@ -217,12 +248,39 @@ def _decimal_spec(fn: str, p: int, s: int) -> AccSpec:
                    (DataType.DECIMAL, p, s))
 
 
+def _distinct_spec(fn: str, dt: DataType) -> AccSpec:
+    """count, sum or avg DISTINCT: the collect_set accumulator, finalized
+    off the set."""
+    res = {"count": (DataType.INT64, 0, 0),
+           "sum": (_SUM_DTYPE[dt], 0, 0),
+           "avg": (DataType.FLOAT64, 0, 0)}[fn]
+    return AccSpec(f"{fn}_distinct", (("set", dt, "collect_set"),), res,
+                   elem=dt)
+
+
 def make_acc_spec(agg: ir.AggFunction, in_schema: Schema,
                   mode: str) -> AccSpec:
     fn = agg.fn
     _refuse_wide_decimal(agg, in_schema)
     if agg.distinct:
-        raise _unsupported(f"{fn} DISTINCT")
+        # the set accumulator already dedupes per group; min, max and
+        # first do not change under DISTINCT and keep their plain state
+        if fn in ("count", "sum", "avg"):
+            dt = infer_dtype(agg.arg, in_schema)[0]
+            if dt in (DataType.STRING, DataType.LIST):
+                raise NotImplementedError(f"{fn} DISTINCT over {dt.value}")
+            return _distinct_spec(fn, dt)
+        if fn not in ("min", "max", "first", "first_ignores_null",
+                      "collect_set"):
+            raise NotImplementedError(f"{fn} DISTINCT")
+    if fn in _COLLECT:
+        dt, p, s = infer_dtype(agg.arg, in_schema)
+        if dt in (DataType.STRING, DataType.LIST):
+            raise NotImplementedError(f"{fn} over {dt.value}")
+        # the element's (p, s) ride the LIST result's slots
+        kind = f"d{fn}" if dt == DataType.DECIMAL and p > 18 else fn
+        return AccSpec(fn, (("list", dt, kind),), (DataType.LIST, p, s),
+                       elem=dt)
     if fn in ("count", "count_star"):
         return AccSpec(fn, (("count", DataType.INT64, "sum"),),
                        (DataType.INT64, 0, 0))
@@ -261,12 +319,17 @@ def make_acc_spec_from_partial(agg: ir.AggFunction, in_schema: Schema,
     """Spec for the final side: state dtypes read from the partial
     schema."""
     fn = agg.fn
-    if agg.distinct:
-        raise _unsupported(f"{fn} DISTINCT")
+    if agg.distinct and fn in ("count", "sum", "avg"):
+        return _distinct_spec(fn, in_schema[start_idx].elem)
     if fn in ("count", "count_star"):
         return AccSpec(fn, (("count", DataType.INT64, "sum"),),
                        (DataType.INT64, 0, 0))
     f0 = in_schema[start_idx]
+    if fn in _COLLECT:
+        wide = f0.elem == DataType.DECIMAL and f0.precision > 18
+        return AccSpec(fn, (("list", f0.elem, f"d{fn}" if wide else fn),),
+                       (DataType.LIST, f0.precision, f0.scale),
+                       elem=f0.elem)
     if f0.dtype == DataType.STRING and fn in (
             "min", "max", "first", "first_ignores_null"):
         return _string_spec(fn)
@@ -379,10 +442,14 @@ def _segment(kind: str, vals: torch.Tensor, dest: torch.Tensor,
     raise ValueError(kind)
 
 
-def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
+def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int,
+                   elems=None):
     """Group + reduce rows that are ALREADY sorted by (dead last, hash
-    ascending). Returns (keys, accs, hashes, num_groups); the output
-    stays hash-sorted, the invariant the searchsorted merge relies on."""
+    ascending). ``elems``: per kind, a collect's element slots per group
+    (0 for the others). Returns (keys, accs, hashes, num_groups, needed),
+    ``needed`` holding each collect's largest group size before the cut
+    to its slots (and before a set's dedupe); the output stays
+    hash-sorted, the invariant the searchsorted merge relies on."""
     cap = live_s.shape[0]
     dev = live_s.device
     first = torch.zeros(1, dtype=torch.bool, device=dev)
@@ -402,8 +469,14 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
     new_keys = tuple(gather_column(c, rep, out_valid) for c in keys_s)
     h_out = torch.where(out_valid, h_s[rep], _HASH_SENTINEL)
 
-    new_accs = []
-    for kind, acc in zip(kinds, accs_s):
+    new_accs, needed = [], []
+    for ki, (kind, acc) in enumerate(zip(kinds, accs_s)):
+        if kind in _COLLECT or kind in _DCOLLECT:
+            out, need = _reduce_collect(kind, acc, live_s, gid, rep, dest,
+                                        out_cap, spare, elems[ki])
+            new_accs.append(out)
+            needed.append(need)
+            continue
         if kind in _STR_KINDS:
             new_accs.append(_reduce_string(kind, acc, live_s, dest, out_cap,
                                            spare, out_valid))
@@ -418,7 +491,79 @@ def _reduce_sorted(keys_s, accs_s, live_s, h_s, kinds, out_cap: int):
             continue
         masked = torch.where(live_s, acc, _neutral(kind, acc.dtype))
         new_accs.append(_segment(kind, masked, dest, out_cap, spare))
-    return new_keys, tuple(new_accs), h_out, num_groups
+    return new_keys, tuple(new_accs), h_out, num_groups, needed
+
+
+def _scatter_slots(m: torch.Tensor, flat: torch.Tensor, out_cap: int,
+                   out_elems: int) -> torch.Tensor:
+    """``m``'s elements at their flat slots of an [out_cap, out_elems]
+    matrix; the slot ``out_cap * out_elems`` is a sink that is cut (the
+    reference's dropped scatter), so no index wraps."""
+    size = out_cap * out_elems
+    buf = torch.zeros(size + 1, dtype=m.dtype, device=m.device)
+    buf.scatter_(0, flat.reshape(-1), m.reshape(-1))
+    return buf[:size].reshape(out_cap, out_elems)
+
+
+def _take_along(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.gather(t, 1, order)
+
+
+def _reduce_collect(kind: str, acc, live_s: torch.Tensor,
+                    gid: torch.Tensor, rep: torch.Tensor, dest: torch.Tensor,
+                    out_cap: int, spare: int, out_elems: int):
+    """One padded-list accumulator of rows sorted by group → its
+    per-group lists of ``out_elems`` slots, and the largest group's
+    element count. Each row's elements land after those of the rows
+    before it in its group; a set then sorts each group's slots by
+    (padding, value...) and keeps the first of each run of equal
+    values (limb pairs compare on (hi, lo) together)."""
+    *mats, lens_in = acc
+    dev = live_s.device
+    in_e = mats[0].shape[1]
+    lens_s = torch.where(live_s, lens_in, 0).to(torch.int64)
+    excl = torch.cumsum(lens_s, 0) - lens_s
+    gidc = gid.clamp(max=out_cap - 1).to(torch.int64)
+    # the element offset within the group: the row's exclusive cumsum
+    # less that of the group's first row
+    start = excl - excl[rep][gidc]
+    j = torch.arange(in_e, device=dev)[None, :]
+    pos = start[:, None] + j
+    ok = live_s[:, None] & (j < lens_s[:, None]) & (pos < out_elems) \
+        & (gid < out_cap)[:, None]
+    sink = out_cap * out_elems
+    flat = torch.where(ok, gidc[:, None] * out_elems + pos, sink)
+    out_mats = [_scatter_slots(m, flat, out_cap, out_elems) for m in mats]
+    glens_raw = _segment("sum", lens_s, dest, out_cap, spare)
+    needed = glens_raw.max() if out_cap else lens_s.sum()
+    glens = glens_raw.clamp(max=out_elems).to(torch.int32)
+    if kind in ("collect_set", "dcollect_set"):
+        jj = torch.arange(out_elems, device=dev)
+        pad = jj[None, :] >= glens[:, None]
+        # a lexicographic sort from stable passes, least significant key
+        # first: the values (the last limb first), then the padding
+        order = jj[None, :].expand(out_cap, -1)
+        for m in reversed(out_mats):
+            k = _take_along(sort_key(m), order)
+            order = _take_along(order, torch.argsort(k, dim=1, stable=True))
+        k = _take_along(pad.to(torch.int8), order)
+        order = _take_along(order, torch.argsort(k, dim=1, stable=True))
+        s_pad = _take_along(pad, order)
+        s_mats = [_take_along(m, order) for m in out_mats]
+        neq = torch.zeros((out_cap, max(out_elems - 1, 0)),
+                          dtype=torch.bool, device=dev)
+        for m in s_mats:
+            neq = neq | (m[:, 1:] != m[:, :-1])
+        keep = ~s_pad & torch.cat(
+            [torch.ones((out_cap, 1), dtype=torch.bool, device=dev), neq],
+            dim=1)
+        row = torch.arange(out_cap, device=dev)[:, None]
+        flat2 = torch.where(keep, row * out_elems + torch.cumsum(keep, 1) - 1,
+                            sink)
+        out_mats = [_scatter_slots(m, flat2, out_cap, out_elems)
+                    for m in s_mats]
+        glens = keep.sum(dim=1).to(torch.int32)
+    return (*out_mats, glens), needed
 
 
 def _reduce_decimal(kind: str, acc, live_s: torch.Tensor, gid: torch.Tensor,
@@ -495,21 +640,45 @@ def _slice_acc(a, n: int):
 
 
 def _unify_acc_pair(a, b) -> tuple:
-    """Pad the char matrices of two string accumulators to one width (a
-    decimal's limb pair has none)."""
+    """Pad the trailing axis of two tuple accumulators' matrices to one
+    size: a string's char width, a list's element slots (a limb-pair
+    list has two matrices); a decimal's limb pair has none."""
     if not isinstance(a, tuple) or a[0].dim() == 1:
         return a, b
-    w = max(a[0].shape[1], b[0].shape[1])
+    e = max(a[0].shape[1], b[0].shape[1])
 
     def pad(t):
-        return (torch.nn.functional.pad(t[0], (0, w - t[0].shape[1])),) \
-            + tuple(t[1:])
+        return tuple(torch.nn.functional.pad(x, (0, e - x.shape[1]))
+                     if x.dim() == 2 else x for x in t)
     return pad(a), pad(b)
+
+
+def _is_list_acc(a) -> bool:
+    """A collect accumulator: (values[cap, E], lens) or (hi[cap, E],
+    lo[cap, E], lens); a string triple's lengths are 1-D."""
+    return isinstance(a, tuple) and a[0].dim() == 2 and (
+        len(a) == 2 or a[1].dim() == 2)
+
+
+def _collect_elems(accs) -> list[int]:
+    """Per accumulator, a collect's element slots for the next step (at
+    least 4, a power of two); 0 for the others."""
+    return [max(4, next_pow2(a[0].shape[1])) if _is_list_acc(a) else 0
+            for a in accs]
 
 
 def _acc_column(a, valid: torch.Tensor):
     """An accumulator as a state or result column: a string triple keeps
-    its validity, masked by ``valid``; a limb pair takes ``valid``."""
+    its validity, masked by ``valid``; a limb pair, a list (all of its
+    elements valid: collect skips nulls) and a limb-pair list on the
+    MapColumn carrier take ``valid``. A group with only nulls holds an
+    empty list, not a null one."""
+    if _is_list_acc(a):
+        ev = torch.arange(a[0].shape[1], device=valid.device)[None, :] \
+            < a[-1][:, None]
+        if len(a) == 2:
+            return ListColumn(a[0], ev, a[1], valid)
+        return MapColumn(a[0], a[1], ev, a[2], valid)
     if isinstance(a, tuple) and len(a) == 2:
         return Decimal128Column(a[0], a[1], valid)
     if isinstance(a, tuple):
@@ -518,16 +687,12 @@ def _acc_column(a, valid: torch.Tensor):
 
 
 def _slice_column(c, n: int):
-    if isinstance(c, StringColumn):
-        return StringColumn(c.chars[:n], c.lens[:n], c.validity[:n])
-    if isinstance(c, Decimal128Column):
-        return Decimal128Column(c.hi[:n], c.lo[:n], c.validity[:n])
-    return PrimitiveColumn(c.data[:n], c.validity[:n])
+    return map_rows(c, lambda t: t[:n])
 
 
-def _batch_reduce(keys, accs, live, kinds, cap: int):
-    """(keys, accs, live) of one batch → its own group table,
-    hash-sorted: one stable sort of the BATCH only."""
+def _batch_reduce(keys, accs, live, kinds, cap: int, elems, out_cap: int):
+    """(keys, accs, live) of one batch → its own group table of
+    ``out_cap`` rows, hash-sorted: one stable sort of the BATCH only."""
     h = hashing.xxhash64_columns(list(keys), cap,
                                  device=live.device) ^ _SIGN
     h = torch.where(live, h, _HASH_SENTINEL)   # dead rows to the end
@@ -535,11 +700,12 @@ def _batch_reduce(keys, accs, live, kinds, cap: int):
     ones = torch.ones(cap, dtype=torch.bool, device=live.device)
     keys_s = tuple(gather_column(c, perm, ones) for c in keys)
     accs_s = tuple(_gather_acc(a, perm) for a in accs)
-    return _reduce_sorted(keys_s, accs_s, live[perm], h[perm], kinds, cap)
+    return _reduce_sorted(keys_s, accs_s, live[perm], h[perm], kinds,
+                          out_cap, elems)
 
 
 def _state_merge(kinds, out_cap: int, keys_s, accs_s, h_s, n_s, keys_b,
-                 accs_b, h_b, n_b):
+                 accs_b, h_b, n_b, elems):
     """Fold a hash-sorted batch table into the hash-sorted state without
     re-sorting the state: merge positions from two searchsorted calls,
     one permutation that interleaves both sides, and the shared reduce
@@ -564,19 +730,12 @@ def _state_merge(kinds, out_cap: int, keys_s, accs_s, h_s, n_s, keys_b,
         return torch.cat([a, b])[perm]
 
     def merged_col(a, b):
-        if isinstance(a, StringColumn):
-            return StringColumn(*merged((a.chars, a.lens, a.validity),
-                                        (b.chars, b.lens, b.validity)))
-        if isinstance(a, Decimal128Column):
-            return Decimal128Column(*merged((a.hi, a.lo, a.validity),
-                                            (b.hi, b.lo, b.validity)))
-        return PrimitiveColumn(merged(a.data, b.data),
-                               merged(a.validity, b.validity))
+        return map_rows(concat_columns(a, b), lambda t: t[perm])
 
     keys_m = tuple(merged_col(a, b) for a, b in zip(keys_s, keys_b))
     accs_m = tuple(merged(a, b) for a, b in zip(accs_s, accs_b))
     return _reduce_sorted(keys_m, accs_m, merged(live_s, live_b),
-                          merged(h_s, h_b), kinds, out_cap)
+                          merged(h_s, h_b), kinds, out_cap, elems)
 
 
 # ---------------------------------------------------------------------------
@@ -593,7 +752,13 @@ def _state_accs(specs, batch: DeviceBatch, start: int) -> list:
     for spec in specs:
         for fname, _fdt, kind in spec.state_fields:
             col = batch.columns[idx]
-            if kind in _STR_KINDS:
+            if kind in _COLLECT:
+                accs.append((col.values,
+                             torch.where(col.validity, col.lens, 0)))
+            elif kind in _DCOLLECT:
+                accs.append((col.keys, col.values,
+                             torch.where(col.validity, col.lens, 0)))
+            elif kind in _STR_KINDS:
                 accs.append((col.chars, col.lens, col.validity))
             elif kind in _DEC_KINDS:
                 accs.append((col.hi, col.lo))
@@ -616,6 +781,22 @@ def _contribution_columns(group_exprs, mode: str, aggs, specs,
     accs = []
 
     for agg, spec in zip(aggs, specs):
+        kind0 = spec.state_fields[0][2]
+        if kind0 in _COLLECT or kind0 in _DCOLLECT:
+            # one element per valid row, none where null (collect and
+            # DISTINCT skip nulls)
+            v = evaluate(agg.arg, batch, in_schema, ectx)
+            valid = (v.validity & live).to(torch.int32)
+            if kind0 in _DCOLLECT:
+                if not isinstance(v.col, Decimal128Column):
+                    raise NotImplementedError(
+                        f"{agg.fn}: expected two-limb decimal input")
+                accs.append((v.col.hi[:, None], v.col.lo[:, None], valid))
+            elif not isinstance(v.col, PrimitiveColumn):
+                raise NotImplementedError(f"{agg.fn} over non-primitives")
+            else:
+                accs.append((v.col.data[:, None], valid))
+            continue
         if agg.fn in ("count", "count_star"):
             if agg.arg is None:
                 accs.append(live.to(torch.int64))
@@ -687,10 +868,7 @@ def _state_ps(spec: AccSpec, fi: int, fdt: DataType) -> tuple[int, int]:
 def _passthrough_state_batch(keys, accs, live, num_rows) -> DeviceBatch:
     """One input batch in partial-state layout without merging: each
     row is its own group (partial-agg skipping)."""
-    cols = list(keys) + [Decimal128Column(a[0], a[1], live)
-                         if isinstance(a, tuple) and len(a) == 2
-                         else StringColumn(*a) if isinstance(a, tuple)
-                         else PrimitiveColumn(a, live) for a in accs]
+    cols = list(keys) + [_acc_column(a, live) for a in accs]
     return DeviceBatch(tuple(cols), num_rows)
 
 
@@ -715,6 +893,23 @@ def _finish_avg(spec: AccSpec, s, cnt: torch.Tensor, valid: torch.Tensor):
         return PrimitiveColumn(torch.where(s < 0, -q, q),
                                valid & (cnt > 0) & fits)
     return PrimitiveColumn(s.to(torch.float64) / safe, valid & (cnt > 0))
+
+
+def _finish_distinct(spec: AccSpec, acc, valid: torch.Tensor):
+    """count, sum or avg DISTINCT off a group's deduped set: the count of
+    its elements; their sum in the result type; the sum over the count
+    in float64. A group with only nulls has an empty set: its sum and
+    average are null."""
+    vals, lens = acc
+    if spec.fn == "count_distinct":
+        return PrimitiveColumn(lens.to(torch.int64), valid)
+    mask = torch.arange(vals.shape[1], device=vals.device)[None, :] \
+        < lens[:, None]
+    total = torch.where(mask, vals, 0).sum(dim=1)
+    s = total.to(spec.result[0].to_torch())
+    if spec.fn == "avg_distinct":
+        s = s.to(torch.float64) / lens.clamp(min=1)
+    return PrimitiveColumn(s, valid & (lens > 0))
 
 
 class _HashPathCtl:
@@ -778,15 +973,17 @@ class AggOp(PhysicalOp):
         key_fields = [infer_field(e, in_schema, n)
                       for e, n in zip(self.group_exprs, self.group_names)]
         if mode == "partial":
-            state_fields = [Field(f"{an}#{fname}", fdt, True,
-                                  *_state_ps(spec, fi, fdt))
-                            for spec, an in zip(self.specs, self.agg_names)
-                            for fi, (fname, fdt, _kind)
-                            in enumerate(spec.state_fields)]
+            state_fields = [
+                Field(f"{an}#{fname}", DataType.LIST, True, spec.result[1],
+                      spec.result[2], elem=spec.elem)
+                if kind in _COLLECT or kind in _DCOLLECT else
+                Field(f"{an}#{fname}", fdt, True, *_state_ps(spec, fi, fdt))
+                for spec, an in zip(self.specs, self.agg_names)
+                for fi, (fname, fdt, kind) in enumerate(spec.state_fields)]
             self._schema = Schema(tuple(key_fields + state_fields))
         else:
             out_fields = [Field(n, spec.result[0], True, spec.result[1],
-                                spec.result[2])
+                                spec.result[2], elem=spec.elem)
                           for spec, n in zip(self.specs, self.agg_names)]
             self._schema = Schema(tuple(key_fields + out_fields))
 
@@ -804,14 +1001,16 @@ class AggOp(PhysicalOp):
     def combine_fold_reason(self) -> Optional[str]:
         """None when the reference folds this agg into its shuffle-split
         program as a map-side combine, else why not. The port keeps no
-        host or collect state, so those reasons of the reference's never
-        arise."""
+        host state, so that reason of the reference's never arises."""
         if self.mode != "partial":
             return "not_partial"
         if not self.group_exprs:
             return "no_group_keys"
         if self.key_domain is not None:
             return "dense_domain"
+        if any(k in _COLLECT or k in _DCOLLECT
+               for k in self._device_kinds()):
+            return "collect_state"
         exact = {"sum", "min", "max", "or", "first", *_STR_KINDS,
                  *_DEC_KINDS}
         if any(k not in exact for k in self._device_kinds()):
@@ -824,16 +1023,46 @@ class AggOp(PhysicalOp):
 
     # -- sort path: table steps ---------------------------------------------
 
-    def _grow_check(self, ng: int, out_cap: int) -> tuple[bool, int]:
-        """(ok, next capacity): the table fits when the groups do."""
+    #: collect growth retries, over every AggOp of the process
+    grow_retries = 0
+
+    def _has_collect(self) -> bool:
+        return any(k in _COLLECT or k in _DCOLLECT
+                   for k in self._device_kinds())
+
+    def _floor(self) -> int:
+        """The least capacity a table shrinks to: a collect's tables keep
+        their groups' bucket, since each row costs E element slots."""
+        return 16 if self._has_collect() else self.initial_capacity
+
+    def _grow_check(self, ng: int, out_cap: int, needed=(),
+                    elems=None) -> tuple[bool, int]:
+        """(ok, next capacity): the table fits when the groups do and
+        each collect's largest group fits its element slots; a collect
+        that does not grows ``elems`` (in place) to the next power of
+        two. A collect's retry takes the groups' own bucket, which may be
+        less than ``out_cap``."""
         ok = ng <= out_cap
-        return ok, (bucket_rows(ng) if ng > out_cap else out_cap)
+        ni = 0
+        for i, e in enumerate(elems or ()):
+            if e:
+                nd = int(needed[ni])
+                ni += 1
+                if nd > e:
+                    ok = False
+                    elems[i] = max(4, next_pow2(nd))
+        if ok:
+            return True, out_cap
+        AggOp.grow_retries += bool(self._has_collect())
+        if self._has_collect():
+            return False, bucket_rows(ng)
+        return False, bucket_rows(ng) if ng > out_cap else out_cap
 
     def _shrink_table(self, tbl, ng: int):
         """Slice a group table down to its occupancy bucket (live groups
         are a hash-sorted prefix)."""
         keys, accs, n, cap, h = tbl
-        new_cap = max(bucket_rows(max(ng, 1)), self.initial_capacity)
+        new_cap = max(bucket_rows(max(ng, 1)), self._floor())
         if new_cap >= cap:
             return tbl
         keys2 = tuple(_slice_column(c, new_cap) for c in keys)
@@ -842,15 +1071,21 @@ class AggOp(PhysicalOp):
 
     def _reduce_batch(self, keys, accs, live, elapsed):
         """One batch → its hash-sorted group table: one readback of the
-        group count, then a slice to its bucket. A batch has no more
-        groups than rows, so its own capacity always fits (the reference
-        retries only for collect kinds, which the port does not take)."""
+        group count (and each collect's largest group), then a slice to
+        its bucket. A batch has no more groups than rows, so only a
+        collect's element slots can force a retry."""
         cap_b = live.shape[0]
-        with timer(elapsed):
-            bk, ba, bh, bn = _batch_reduce(tuple(keys), tuple(accs), live,
-                                           self._device_kinds(), cap_b)
-            (ng,) = host_readback([bn])
-        return self._shrink_table((bk, ba, bn, cap_b, bh), ng)
+        elems = _collect_elems(accs)
+        out_cap = cap_b
+        while True:
+            with timer(elapsed):
+                bk, ba, bh, bn, needed = _batch_reduce(
+                    tuple(keys), tuple(accs), live, self._device_kinds(),
+                    cap_b, elems, out_cap)
+                ng, *needed_h = host_readback([bn, *needed])
+            ok, out_cap = self._grow_check(ng, out_cap, needed_h, elems)
+            if ok:
+                return self._shrink_table((bk, ba, bn, out_cap, bh), ng)
 
     def _merge_tables(self, s, b, elapsed):
         """Fold group table ``b`` into group table ``s`` (both
@@ -864,14 +1099,15 @@ class AggOp(PhysicalOp):
         pairs = [_unify_acc_pair(a, c) for a, c in zip(s_accs, ba)]
         s_accs = tuple(p[0] for p in pairs)
         ba = tuple(p[1] for p in pairs)
-        out_cap = max(s_cap, self.initial_capacity)
+        out_cap = max(s_cap, self._floor())
+        elems = _collect_elems(s_accs)
         while True:
             with timer(elapsed):
-                new_keys, new_accs, h_out, num_groups = _state_merge(
-                    kinds, out_cap, s_keys, s_accs, s_h, s_n, bk, ba, bh,
-                    bn)
-                (ng,) = host_readback([num_groups])
-            ok, out_cap = self._grow_check(ng, out_cap)
+                new_keys, new_accs, h_out, num_groups, needed = \
+                    _state_merge(kinds, out_cap, s_keys, s_accs, s_h, s_n,
+                                 bk, ba, bh, bn, elems)
+                ng, *needed_h = host_readback([num_groups, *needed])
+            ok, out_cap = self._grow_check(ng, out_cap, needed_h, elems)
             if ok:
                 return self._shrink_table(
                     (new_keys, new_accs, num_groups, out_cap, h_out), ng)
@@ -1007,6 +1243,11 @@ class AggOp(PhysicalOp):
             fn = spec.fn
             if fn in ("count", "count_star"):
                 out_cols.append(PrimitiveColumn(state_vals[0], valid))
+            elif fn in _COLLECT:
+                out_cols.append(_acc_column(state_vals[0], valid))
+            elif fn in ("count_distinct", "sum_distinct", "avg_distinct"):
+                out_cols.append(_finish_distinct(spec, state_vals[0],
+                                                 valid))
             elif spec.result[0] == DataType.STRING:  # validity inside
                 out_cols.append(_acc_column(state_vals[0], valid))
             elif fn == "avg":
@@ -1030,6 +1271,19 @@ class AggOp(PhysicalOp):
         every other result null."""
         cols = []
         for spec in self.specs:
+            if spec.fn in _COLLECT:
+                # an empty list, not a null one
+                i64 = spec.elem.to_torch()
+                if spec.state_fields[0][2] in _DCOLLECT:
+                    i64 = torch.int64
+                z = torch.zeros((1, 1), dtype=i64, device=device)
+                acc = (z, z.clone(), torch.zeros(1, dtype=torch.int32,
+                                                 device=device)) \
+                    if spec.state_fields[0][2] in _DCOLLECT else \
+                    (z, torch.zeros(1, dtype=torch.int32, device=device))
+                cols.append(_acc_column(acc, torch.ones(
+                    1, dtype=torch.bool, device=device)))
+                continue
             if spec.result[0] == DataType.STRING:
                 cols.append(StringColumn(
                     torch.zeros((1, 1), dtype=torch.uint8, device=device),
@@ -1043,7 +1297,7 @@ class AggOp(PhysicalOp):
                     torch.zeros(1, dtype=torch.bool, device=device)))
                 continue
             dt = spec.result[0].to_torch()
-            is_count = spec.fn in ("count", "count_star")
+            is_count = spec.fn in ("count", "count_star", "count_distinct")
             cols.append(PrimitiveColumn(
                 torch.zeros(1, dtype=dt, device=device),
                 torch.full((1,), is_count, dtype=torch.bool, device=device)))

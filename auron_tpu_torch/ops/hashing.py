@@ -1,9 +1,7 @@
-"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive, string and
-decimal columns.
+"""Spark-compatible xxhash64 and murmur3_x86_32 on primitive, string,
+decimal and struct columns.
 
-The port of ``auron_tpu.ops.hashing``'s primitive, string and decimal
-arms,
-bit-identical to it (and so to Spark's XxHash64 and Murmur3_x86_32):
+The port of ``auron_tpu.ops.hashing``, bit-identical to it (and so to Spark's XxHash64 and Murmur3_x86_32):
 every value contributes the hash of its little-endian bytes, multi-column
 hashes chain the running hash through the seed, and NULL leaves the
 running hash unchanged. murmur3 with seed 42 places rows in a hash
@@ -31,8 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from auron_tpu_torch.columnar.batch import (Decimal128Column,
-                                            PrimitiveColumn, StringColumn,
+from auron_tpu_torch.columnar.batch import (Decimal128Column, ListColumn,
+                                            MapColumn, PrimitiveColumn,
+                                            StringColumn, StringListColumn,
+                                            StringMapColumn, StructColumn,
                                             unify_column_widths)
 from auron_tpu_torch.ops.strings import le_words
 
@@ -114,22 +114,33 @@ def nan_aware_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return same
 
 
-def _require_key(c) -> None:
-    if not isinstance(c, (PrimitiveColumn, StringColumn, Decimal128Column)):
-        raise NotImplementedError(
-            f"keys of {type(c).__name__}: the port compares and hashes "
-            "primitive, string and decimal columns only; struct, list and "
-            "map keys come with ROADMAP item 16f")
+_NESTED = (MapColumn, ListColumn, StringListColumn, StringMapColumn)
+
+
+def _field_of(child, struct: StructColumn):
+    """A struct's field with the struct's own validity ANDed in."""
+    return child.with_validity(child.validity & struct.validity)
 
 
 def pairwise_eq(pc, probe_idx: torch.Tensor, bc,
                 build_idx: torch.Tensor) -> torch.Tensor:
     """Value equality of ``pc[probe_idx]`` and ``bc[build_idx]`` under
     Spark key semantics (NaN == NaN, -0.0 == 0.0; strings byte for byte
-    and by length, at either side's width). Validity is not included:
-    equi-join null keys never match, and the caller applies that rule."""
-    for c in (pc, bc):
-        _require_key(c)
+    and by length, at either side's width; a struct fieldwise, a null
+    field equal to a null field). Validity is not included: equi-join
+    null keys never match, and the caller applies that rule."""
+    if isinstance(pc, _NESTED):
+        raise NotImplementedError(
+            f"join keys of {type(pc).__name__} type are not supported")
+    if isinstance(pc, StructColumn):
+        same = torch.ones(probe_idx.shape[0], dtype=torch.bool,
+                          device=probe_idx.device)
+        for cp, cb in zip(pc.children, bc.children):
+            pv = cp.validity[probe_idx] & pc.validity[probe_idx]
+            bv = cb.validity[build_idx] & bc.validity[build_idx]
+            child_same = pairwise_eq(cp, probe_idx, cb, build_idx)
+            same = same & ((pv & bv & child_same) | (~pv & ~bv))
+        return same
     if isinstance(pc, StringColumn):
         pc, bc = unify_column_widths([pc, bc])
         return (pc.chars[probe_idx] == bc.chars[build_idx]).all(dim=1) \
@@ -142,11 +153,20 @@ def pairwise_eq(pc, probe_idx: torch.Tensor, bc,
 
 def adjacent_eq(col) -> torch.Tensor:
     """bool[cap-1]: row i equals row i-1 under Spark key semantics —
-    null == null, NaN == NaN, strings byte for byte and by length."""
-    _require_key(col)
+    null == null, NaN == NaN, strings byte for byte and by length, a
+    struct fieldwise."""
+    if isinstance(col, _NESTED):
+        raise NotImplementedError(
+            f"grouping / partitioning on {type(col).__name__} keys is not "
+            "supported — Spark itself disallows map-typed keys; key on "
+            "the individual elements instead")
     both_valid = col.validity[1:] & col.validity[:-1]
     both_null = ~col.validity[1:] & ~col.validity[:-1]
-    if isinstance(col, StringColumn):
+    if isinstance(col, StructColumn):
+        same = torch.ones_like(both_valid)
+        for ch in col.children:
+            same = same & adjacent_eq(_field_of(ch, col))
+    elif isinstance(col, StringColumn):
         same = (col.chars[1:] == col.chars[:-1]).all(dim=1) \
             & (col.lens[1:] == col.lens[:-1])
     elif isinstance(col, Decimal128Column):
@@ -154,6 +174,15 @@ def adjacent_eq(col) -> torch.Tensor:
     else:
         same = nan_aware_eq(col.data[1:], col.data[:-1])
     return (both_valid & same) | both_null
+
+
+def _reject_nested(col) -> None:
+    if isinstance(col, _NESTED):
+        raise NotImplementedError(
+            f"hash partitioning / hash join / hash agg on "
+            f"{type(col).__name__} keys is not supported — Spark itself "
+            "disallows map-typed keys; for array keys, hash the "
+            "individual elements instead")
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +296,14 @@ def murmur3_string(chars: torch.Tensor, lens: torch.Tensor,
 
 def _hash_column_murmur(col, hashes: torch.Tensor) -> torch.Tensor:
     """One column's contribution to the running murmur3 hash (int32[n])."""
-    _require_key(col)
+    _reject_nested(col)
+    if isinstance(col, StructColumn):
+        # Spark's create_hashes recurses into the fields, chaining the
+        # running hash through each
+        new = hashes
+        for ch in col.children:
+            new = _hash_column_murmur(_field_of(ch, col), new)
+        return torch.where(col.validity, new, hashes)
     if isinstance(col, Decimal128Column):
         # the limb pair, low then high, as two int64 words: the
         # reference's departure from Spark, which hashes a wide decimal's
@@ -384,7 +420,12 @@ def xxhash64_string(chars: torch.Tensor, lens: torch.Tensor,
 
 
 def _hash_column_xxhash(col, hashes: torch.Tensor) -> torch.Tensor:
-    _require_key(col)
+    _reject_nested(col)
+    if isinstance(col, StructColumn):
+        new = hashes
+        for ch in col.children:
+            new = _hash_column_xxhash(_field_of(ch, col), new)
+        return torch.where(col.validity, new, hashes)
     if isinstance(col, Decimal128Column):
         # the limb pair, low then high (see _hash_column_murmur)
         new = xxhash64_int64(col.hi, xxhash64_int64(col.lo, hashes))

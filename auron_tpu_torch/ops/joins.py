@@ -31,14 +31,14 @@ the probe chain folded into it, the gather folded into the consumer's
 chain) runs here as eager ops on the batches' device; the probe side is
 executed as it is planned, a ``FusedStageOp`` running its members, with
 the same rows. A context with a memory manager raises: the build side's
-spill and its sort-merge fallback wait for the memory manager (ROADMAP
-item 18) and ``SortMergeJoinOp`` (16f). A string key hashes its bytes
+spill and its sort-merge fallback wait for the memory manager and
+``SortMergeJoinOp`` (both ROADMAP item 18). A string key hashes its bytes
 and matches byte for byte at either side's width; string payloads ride
 the gathers, and a left or full join pads the build side with null
 strings of the build's width, as the reference does. A decimal key
-hashes and matches as its int64 (precision <= 18) or its two limbs.
-Nested keys raise ``NotImplementedError`` naming the item that brings
-them (16f).
+hashes and matches as its int64 (precision <= 18) or its two limbs. A
+struct key hashes and matches fieldwise, a null field equal to a null
+field; list and map keys raise, as in the reference.
 
 Host syncs per probe batch: one readback of the candidate total, which
 sizes the output (``host_readback``), plus the "ht" lookup's one read
@@ -83,7 +83,7 @@ _KEY_TYPES = frozenset({DataType.BOOL, DataType.INT8, DataType.INT16,
                         DataType.INT32, DataType.INT64, DataType.FLOAT32,
                         DataType.FLOAT64, DataType.DATE32,
                         DataType.TIMESTAMP_US, DataType.STRING,
-                        DataType.DECIMAL})
+                        DataType.DECIMAL, DataType.STRUCT})
 
 
 def _key_hashes(cols, cap: int, live: torch.Tensor,
@@ -200,10 +200,7 @@ class HashJoinOp(PhysicalOp):
                 dt = infer_dtype(e, schema)[0]
                 if dt not in _KEY_TYPES:
                     raise NotImplementedError(
-                        f"join key of type {dt.value}: the port joins on "
-                        "bool, integer, float, decimal, date, timestamp "
-                        "and string keys; nested keys come with ROADMAP "
-                        "item 16f")
+                        f"join keys of {dt.value} type are not supported")
         if join_type in ("semi", "anti"):
             self._schema = ps
         elif join_type == "existence":
@@ -224,8 +221,8 @@ class HashJoinOp(PhysicalOp):
         if ctx.mem_manager is not None:
             raise NotImplementedError(
                 "HashJoinOp with a memory manager: the build side's spill "
-                "and its sort-merge fallback are not ported (ROADMAP items "
-                "18 and 16f)")
+                "and its sort-merge fallback are not ported (ROADMAP item "
+                "18)")
         metrics = ctx.metrics_for(self)
         elapsed = metrics.counter("elapsed_compute")
         build_time = metrics.counter("build_hash_map_time")

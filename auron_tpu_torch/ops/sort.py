@@ -1,7 +1,7 @@
 """Sort operator: a full sort, or the first ``fetch`` rows (top-k).
 
-The port of ``auron_tpu.ops.sort`` for primitive, string and decimal
-keys. A stage
+The port of ``auron_tpu.ops.sort`` for primitive, string, decimal and
+struct keys; any column, nested ones included, rides along. A stage
 breaker: the operator buffers its partition's batches, concatenates
 them once, normalizes every sort key into order-preserving 64-bit words
 and runs one stable argsort per word, least significant first, then one
@@ -15,6 +15,8 @@ first or last and ascending or descending live in the words themselves:
                    ceil(width / 8) of them (a prefix sorts first)
   decimal(p>18)  → two words: the high limb sign-flipped, then the low
                    limb as unsigned (a narrower decimal is its int64)
+  struct         → per field, its own null-rank word (a null field
+                   first) and its ascending words, nulls zeroed
   descending     → bitwise NOT of the word
   null rank      → one leading word per key: 0/1 by nulls_first
 
@@ -27,8 +29,8 @@ order, and ``~`` commutes with the XOR, so a descending word stays
 There is no spill: the port has no memory manager yet, so SortOp always
 takes the reference's in-memory branch, and a context that carries a
 memory manager raises ``NotImplementedError``, as AggOp's and the
-exchange's do. Struct keys raise until those columns are ported
-(ROADMAP item 16f). The one host sync is the top-k's read of the sorted
+exchange's do. List and map keys raise, as in the reference. The one
+host sync is the top-k's read of the sorted
 row count, through ``host_readback``.
 """
 
@@ -41,9 +43,9 @@ import torch
 
 from auron_tpu_torch.columnar.batch import (Decimal128Column, DeviceBatch,
                                             PrimitiveColumn, StringColumn,
-                                            compact,
-                                            gather_batch, resize,
-                                            unify_column_widths)
+                                            StructColumn, compact,
+                                            concat_many, gather_batch,
+                                            resize)
 from auron_tpu_torch.columnar.schema import DataType, Schema
 from auron_tpu_torch.exprs import ir
 from auron_tpu_torch.exprs.eval import EvalContext, evaluate, infer_dtype
@@ -62,7 +64,7 @@ _SORTABLE = frozenset({DataType.BOOL, DataType.INT8, DataType.INT16,
                        DataType.INT32, DataType.INT64, DataType.FLOAT32,
                        DataType.FLOAT64, DataType.DATE32,
                        DataType.TIMESTAMP_US, DataType.STRING,
-                       DataType.DECIMAL})
+                       DataType.DECIMAL, DataType.STRUCT})
 
 
 def _uword(u: int) -> int:
@@ -80,6 +82,16 @@ def order_words(col, ascending: bool,
                 nulls_first: bool) -> list[torch.Tensor]:
     """One sort key column as order-preserving int64 words, most
     significant first (the null-rank word is the caller's)."""
+    if isinstance(col, StructColumn):
+        # fieldwise: each field's null-rank word (a null field first, as
+        # Spark's InterpretedOrdering), then its words, nulls zeroed
+        words = []
+        for ch in col.children:
+            cv = ch.validity & col.validity
+            words.append(torch.where(cv, _uword(1), _uword(0)))
+            words.extend(torch.where(cv, w, _uword(0))
+                         for w in order_words(ch, True, True))
+        return words if ascending else [~w for w in words]
     if isinstance(col, StringColumn):
         be = string_be_words(col.chars)
         words = [be[:, i] for i in range(be.shape[1])]
@@ -91,8 +103,7 @@ def order_words(col, ascending: bool,
         return words if ascending else [~w for w in words]
     if not isinstance(col, PrimitiveColumn):
         raise NotImplementedError(
-            f"sort keys of {type(col).__name__}: the port sorts primitive, "
-            "string and decimal columns only (struct: ROADMAP item 16f)")
+            f"sort keys of {type(col).__name__} are not supported")
     d = col.data
     if d.dtype == torch.bool:
         w = d.to(torch.int64) ^ _SIGN
@@ -160,21 +171,8 @@ def _concat_all(batches: list[DeviceBatch]) -> DeviceBatch:
     concatenated once and compacted once, with the same result."""
     stacked_cap = sum(b.capacity for b in batches)
     total_cap = bucket_rows(stacked_cap)
-    cols = []
-    for i in range(len(batches[0].columns)):
-        parts = unify_column_widths([b.columns[i] for b in batches])
-        validity = torch.cat([p.validity for p in parts])
-        if isinstance(parts[0], StringColumn):
-            cols.append(StringColumn(torch.cat([p.chars for p in parts]),
-                                     torch.cat([p.lens for p in parts]),
-                                     validity))
-        elif isinstance(parts[0], Decimal128Column):
-            cols.append(Decimal128Column(torch.cat([p.hi for p in parts]),
-                                         torch.cat([p.lo for p in parts]),
-                                         validity))
-        else:
-            cols.append(PrimitiveColumn(torch.cat([p.data for p in parts]),
-                                        validity))
+    cols = [concat_many([b.columns[i] for b in batches])
+            for i in range(len(batches[0].columns))]
     live = torch.cat([b.row_mask() for b in batches])
     dev = batches[0].device
     stacked = DeviceBatch(tuple(cols), torch.full(
@@ -197,9 +195,8 @@ class SortOp(PhysicalOp):
             dt = infer_dtype(s.expr, in_schema)[0]
             if dt not in _SORTABLE:
                 raise NotImplementedError(
-                    f"sort key of type {dt.value}: the port sorts bool, "
-                    "integer, float, decimal, date, timestamp and string "
-                    "keys only (nested: ROADMAP item 16f)")
+                    f"sort key of type {dt.value}: list and map keys are "
+                    "not supported")
 
     @property
     def children(self):

@@ -71,3 +71,14 @@ def min_max(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
         return op(a, b)
     out = from_ordered_int(op(ordered_int(a), ordered_int(b)), a.dtype)
     return torch.where(torch.isnan(a) | torch.isnan(b), torch.nan, out)
+
+
+def sort_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 key whose signed order is the order XLA's sort gives values:
+    ``-0.0`` and ``0.0`` tie, every NaN ties with every other and sorts
+    after +inf; integers and bools as they are."""
+    if not x.dtype.is_floating_point:
+        return x.to(torch.int64)
+    canon = torch.where(x == 0, 0.0, x)
+    canon = torch.where(torch.isnan(x), torch.nan, canon)
+    return ordered_int(canon)

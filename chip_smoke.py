@@ -234,12 +234,34 @@ q. TPC-DS at scale 1.0 (store_sales 1,000,000 rows, catalog_sales
    ``Session`` on the card through ``it.runner``, in ``QUERIES`` order,
    and must match its oracle with the reference's comparator (TPC-DS:
    1e-7 relative, 1e-6 absolute; TPC-H 1e-7 and 1e-5; decimals cast to
-   float64) and return rows: 95 TPC-DS queries and 6 TPC-H ones. q16,
-   q94, q95 and q28 must raise ``NotImplementedError`` naming ROADMAP
-   item 16f-c (DISTINCT aggregates). Per query: the wall ms of its
+   float64) and return rows: all 99 TPC-DS queries (q16, q94, q95 and
+   q28 with their DISTINCT aggregates) and the 6 TPC-H ones. Per query:
+   the wall ms of its
    checked run (the oracle's ms apart), its rows, host syncs, scalar
    subqueries resolved and their ms, and ``cuda_sum_count.launches``;
    per suite the totals. q14 and the slowest query are profiled once.
+
+n. Nested columns and DISTINCT aggregates (``it/nested.py``) through
+   the Session over SF1's store_sales (2,880,000 rows, 4 partitions,
+   batches of 2^16): (a) per customer ``collect_set`` of the items,
+   ``collect_list`` of the quantities and the DISTINCT count of the
+   items; (b) an explode and a posexplode of (a)'s set; (c)
+   ``named_struct(store, date)`` as a group key, a sort key and a window
+   partition key, read back with ``get_struct_field``; (d) DISTINCT sum
+   and avg of the price as a decimal(7, 2) (the DSL's regroup); (e) a
+   ``collect_set`` of the price as a decimal(25, 2) (limb pairs); each
+   held against its pandas or Python-``decimal`` oracle (sets as sets,
+   lists as multisets), with its ms, rows/s, host syncs, the collect
+   accumulator's growth retries and the peak device bytes of its checked
+   run, and one profiled run. Then (f) a parquet file of NESTED_ROWS
+   rows of list<int64>, list<string>, list<decimal(25, 2)>,
+   map<string, string>, map<int64, float64> and struct columns read
+   through the Session must collect to the table written, an outer
+   explode over its list<int64> column (null and empty lists) must give
+   one row per element and one null row per null or empty list, and (g)
+   the sweep of the 31 array, map and struct functions over it on the
+   card must equal the same sweep through ``Session(device="cpu")``,
+   cell by cell.
 
 The input is bench.py's measured distribution, made with numpy from seed
 0: keys uniform on [0, 65536), v normal with 5% nulls, f uniform on
@@ -247,8 +269,8 @@ The input is bench.py's measured distribution, made with numpy from seed
 store_sales in one batch.
 
 Output: progress lines, then a JSON line of the stage's numbers, the
-pipeline, Session, join, string, expression, decimal, window and suite
-phases and the comparisons, the
+pipeline, Session, join, string, expression, decimal, window, nested
+and suite phases and the comparisons, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device":
 {...}}``.
@@ -343,8 +365,8 @@ STRING_QUERIES = ("q03", "q04", "q06", "q07", "q08", "q09")
 #: at scale 10 (600,000 lineitems), depth cuts for the limit: SF1 is
 #: 2.88 (2,880,000 store_sales rows) and 100 (6,000,000 lineitems)
 SUITE_TPCDS_SCALE, SUITE_TPCH_SCALE = 1.0, 10
-#: the TPC-DS queries whose DISTINCT aggregates wait for ROADMAP item 16f-c
-SUITE_DISTINCT = ("q16", "q94", "q95", "q28")
+#: phase n: the rows of the nested parquet file (f) and its sweep (g)
+NESTED_ROWS = 1 << 14
 #: the directory of the repo, under which the parquet run writes its files
 ROOT = Path(__file__).resolve().parent
 
@@ -2931,14 +2953,164 @@ def window_sweep(session, files: dict) -> dict:
     return out
 
 
+def _bits(x):
+    """A cell as something ``==`` compares exactly: a float by its bits,
+    containers element-wise."""
+    import struct
+    if isinstance(x, float):
+        return struct.pack("<d", x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_bits(e) for e in x)
+    if isinstance(x, dict):
+        return {k: _bits(v) for k, v in x.items()}
+    return x
+
+
+def outer_explode_oracle(table) -> "Counter":
+    """(k, element) rows of an outer explode of ``table``'s li: each
+    element of a list, and (k, None) for a null or empty list."""
+    from collections import Counter
+    want = Counter()
+    for k, li in zip(table["k"].to_pylist(), table["li"].to_pylist()):
+        for v in (li or [None]):
+            want[(k, v)] += 1
+    return want
+
+
+def phase_nested(dev, seed: int, root: str) -> dict:
+    """n. The nested and DISTINCT queries of ``it/nested.py`` through the
+    Session over SF1's store_sales, each checked against its oracle,
+    timed by its checked run, its host syncs, growth retries and peak
+    device bytes recorded, and profiled once; then the nested parquet
+    file (f) read back, exploded (outer) and swept (g) on the card
+    against the CPU."""
+    import pandas as pd
+    import pyarrow.parquet as pq
+    from auron_tpu_torch.frontend.session import Session
+    from auron_tpu_torch.it import nested as tn
+    from auron_tpu_torch.it.comparator import compare_cells
+    from auron_tpu_torch.ops.agg import AggOp
+
+    t_phase = time.perf_counter()
+    drawn, sf1_files = sf1_data(seed, root)
+    t = {"store_sales": sf1_files["store_sales"]}
+    ss = pd.DataFrame({c: v for c, (v, _ok) in drawn["store_sales"].items()})
+    setup_s = time.perf_counter() - t_phase
+    rows = len(ss)
+    session = Session(device=dev)
+    gagg.cuda_sum_count.launches = 0
+    structs = tn.struct_key_dataframes(session, t)
+    queries = {
+        "a_sets": (lambda: tn.customer_sets_dataframe(session, t),
+                   lambda g: tn.check_customer_sets(g, ss)),
+        "b_explode": (lambda: tn.exploded_sets_dataframe(session, t),
+                      lambda g: tn.check_exploded(g, ss)),
+        "b_posexplode": (
+            lambda: tn.exploded_sets_dataframe(session, t, pos=True),
+            lambda g: tn.check_exploded(g, ss, pos=True)),
+        **{f"c_{k}": (lambda k=k: tn.struct_key_dataframes(session, t)[k],
+                      lambda g, k=k: tn.check_struct_keys(k, g, ss))
+           for k in structs},
+        "d_decimal_distinct": (
+            lambda: tn.decimal_distinct_dataframe(session, t),
+            lambda g: tn.check_decimal_distinct(g, ss)),
+        "e_wide_set": (lambda: tn.wide_set_dataframe(session, t),
+                       lambda g: tn.check_wide_set(g, ss)),
+    }
+    out = {"rows": rows, "queries": {}}
+    for name, (make, oracle) in queries.items():
+        seen = {}
+        r0 = AggOp.grow_retries
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def verify(table, _sizes, name=name, oracle=oracle, seen=seen):
+            # read before the profiled run: the checked run's alone
+            seen["grow_retries"] = AggOp.grow_retries - r0
+            seen["peak_extra_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+            t0 = time.perf_counter()
+            bad = oracle(table)
+            seen["oracle_s"] = time.perf_counter() - t0
+            check(not bad, f"nested.{name} matches its oracle: {bad}")
+            return {"mismatches": 0, "rows": table.num_rows}
+
+        res = run_session_query(f"nested.{name}", make, verify, rows, make,
+                                timed=False)
+        del res["table"]
+        res.update(seen, allocated_before_bytes=base)
+        out["queries"][name] = res
+    out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
+    out["queries_s"] = time.perf_counter() - t_phase - setup_s
+    t_file = time.perf_counter()
+
+    # (f) the nested parquet file, (g) the sweep over it
+    nfiles = tn.write_nested(str(Path(root) / "nested"), NESTED_ROWS, seed)
+    written = pq.read_table(nfiles[0])
+    torch.cuda.synchronize()
+    s0 = host_readback.syncs
+    t0 = time.perf_counter()
+    got = session.read_parquet(nfiles).collect()
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    check(got.schema == written.schema
+          and _bits(got.to_pylist()) == _bits(written.to_pylist()),
+          "nested.f: the nested file collects to the table written")
+    t0 = time.perf_counter()
+    exploded = session.read_parquet(nfiles).explode(
+        "li", outer=True, keep=["k"]).collect()
+    torch.cuda.synchronize()
+    explode_ms = (time.perf_counter() - t0) * 1e3
+    from collections import Counter
+    check(Counter(zip(exploded["k"].to_pylist(),
+                      exploded["col"].to_pylist()))
+          == outer_explode_oracle(written),
+          "nested.b_outer: one row per element, one per null or empty "
+          "list")
+    cpu = Session(device="cpu")
+    t0 = time.perf_counter()
+    want = tn.function_sweep_dataframe(cpu, nfiles).collect()
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    s1 = host_readback.syncs
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    swept = tn.function_sweep_dataframe(session, nfiles).collect()
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    bad, _ = compare_cells(want, swept)
+    check(not bad, f"nested.g: the card's sweep is the CPU's: {bad[:5]}")
+    prof = device_profile(
+        lambda: tn.function_sweep_dataframe(session, nfiles).collect(),
+        iters=1, top=6, host_ops=False, warm=True)
+    out["file"] = {
+        "rows": NESTED_ROWS, "read_ms": read_ms,
+        "read_rows_per_s": NESTED_ROWS / (read_ms / 1e3),
+        "outer_explode_ms": explode_ms,
+        "outer_explode_rows": exploded.num_rows,
+        "read_and_explode_host_syncs": s1 - s0,
+        "sweep": {"functions": len(tn.SWEEP_FUNCTIONS),
+                  "columns": swept.num_columns, "ms": sweep_ms,
+                  "rows_per_s": NESTED_ROWS / (sweep_ms / 1e3),
+                  "host_syncs": host_readback.syncs - s1,
+                  "peak_extra_bytes":
+                  torch.cuda.max_memory_allocated() - base,
+                  "cpu_s": cpu_s, "profile": prof}}
+    out["file_s"] = time.perf_counter() - t_file
+    out["setup_s"] = setup_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"nested phase: {out['phase_s']:.1f} s " + json.dumps(out["file"]))
+    return out
+
+
 def phase_suites(dev, root: str) -> dict:
     """q. The TPC-DS suite at scale SUITE_TPCDS_SCALE and the TPC-H suite
     at SUITE_TPCH_SCALE, generated under ``root``; their oracles first,
     in worker processes; then every query in a fresh ``Session`` on the
     card through ``it.runner``, held against its oracle with the
-    reference's comparator. The DISTINCT queries must raise naming
-    ROADMAP item 16f-c. Then q14 and the slowest query are profiled
-    once."""
+    reference's comparator, the four DISTINCT queries included. Then q14
+    and the slowest query are profiled once."""
     import pyarrow.parquet as pq
     from auron_tpu_torch.frontend.session import Session
     from auron_tpu_torch.it import runner, tpcds, tpch
@@ -2959,11 +3131,11 @@ def phase_suites(dev, root: str) -> dict:
                       "table_rows": {n: sum(pq.read_metadata(f).num_rows
                                             for f in fs)
                                      for n, fs in files[suite].items()},
-                      "queries": {}, "refused": []}
+                      "queries": {}}
         log(f"{suite} at scale {scale}: {out[suite]['table_rows']}")
     jobs = [(suite, files[suite], q.name)
             for suite, (_g, queries, _s, _t) in suites.items()
-            for q in queries if q.name not in SUITE_DISTINCT]
+            for q in queries]
     t0 = time.perf_counter()
     expected = runner.suite_oracles(jobs)
     out["oracles"] = {"host_cores": os.cpu_count(),
@@ -2976,19 +3148,6 @@ def phase_suites(dev, root: str) -> dict:
         res, tables = out[suite], files[suite]
         comparator = QueryResultComparator(**tolerance)
         for q in queries:
-            if q.name in SUITE_DISTINCT:
-                with Session(device=dev) as session:
-                    try:
-                        q.run(session, tables)
-                    except NotImplementedError as e:
-                        check("DISTINCT" in str(e) and "16f-c" in str(e),
-                              f"suites.{q.name} names 16f-c: {e}")
-                    else:
-                        raise RuntimeError(
-                            f"check failed: suites.{q.name} ran, but its "
-                            "DISTINCT aggregate is not ported")
-                res["refused"].append(q.name)
-                continue
             launches0 = gagg.cuda_sum_count.launches
             (r,) = runner._run_suite(
                 [q], tables, {q.name: expected[(suite, q.name)]},
@@ -3013,12 +3172,9 @@ def phase_suites(dev, root: str) -> dict:
                                       if r["cuda_sum_count_launches"]])
         log(f"{suite}: {res['passed']} queries passed in "
             f"{res['ms'] / 1e3:.1f} s")
-    check(sorted(out["tpcds"]["refused"]) == sorted(SUITE_DISTINCT)
-          and not out["tpch"]["refused"],
-          "the DISTINCT queries alone are refused")
-    check(out["tpcds"]["passed"] == len(DS_QUERIES) - len(SUITE_DISTINCT)
+    check(out["tpcds"]["passed"] == len(DS_QUERIES) == 99
           and out["tpch"]["passed"] == len(H_QUERIES),
-          "every runnable suite query ran")
+          "every suite query ran: 99 TPC-DS, 6 TPC-H")
     out["cuda_sum_count_launches"] = gagg.cuda_sum_count.launches
     slowest = max(runs, key=lambda sn: out[sn[0]]["queries"][sn[1]]["ms"])
     out["profiles"] = {}
@@ -3074,6 +3230,7 @@ def main() -> int:
         windows = phase_windows(dev, pipe, args.seed, root,
                                 args.profile_at_sf10)
         del pipe
+        nested = phase_nested(dev, args.seed, root)
         suites = phase_suites(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3104,6 +3261,7 @@ def main() -> int:
             "expressions": expressions["cuda_sum_count_launches"],
             "decimals": decimals["cuda_sum_count_launches"],
             "windows": windows["cuda_sum_count_launches"],
+            "nested": nested["cuda_sum_count_launches"],
             "suites": suites["cuda_sum_count_launches"]},
         "pipeline_shape": pipeline["kernel_shape"],
         "max_abs_err": max_err, "max_err": max_err,
@@ -3124,7 +3282,8 @@ def main() -> int:
     report = {"build_s": build_s, "stages": other["stages"],
               "pipeline": pipeline, "session": session, "joins": joins,
               "strings": strings, "expressions": expressions,
-              "decimals": decimals, "windows": windows, "suites": suites,
+              "decimals": decimals, "windows": windows, "nested": nested,
+              "suites": suites,
               "hash": {"twin": hash_twin, "stream": stream, "table": table},
               "profile": {str(n): p for n, p in prof.items()},
               "compare": cmp, "profiler_misses": EVENT_TIMED,

@@ -209,7 +209,7 @@ def test_unported_nodes_raise_with_their_name():
         teval.evaluate(_Negative(), tb, ts)
     with pytest.raises(NotImplementedError, match="_Negative"):
         teval.infer_dtype(_Negative(), ts)
-    with pytest.raises(NotImplementedError, match="16f"):
+    with pytest.raises(TypeError, match="GetIndexedField needs a list"):
         teval.evaluate(tir.GetIndexedField(tir.ColumnRef(0), 1), tb, ts)
 
 

@@ -9,9 +9,11 @@ equal over the live rows, floats bit for bit, but the transcendental
 family within ``ULP_BOUND`` units in the last place. Also:
 
 - the port's registry is exactly the union of the reference's
-  ``functions.py``, ``fn_strings.py`` and ``fn_dates.py`` registries;
+  ``functions.py``, ``fn_strings.py``, ``fn_dates.py``, ``fn_arrays.py``
+  and ``fn_structs.py`` registries (the last two held against the
+  reference in ``test_torch_fn_arrays.py`` and ``test_torch_fn_structs.py``);
   every other reference name raises ``NotImplementedError`` naming
-  ROADMAP item 16f (arrays, maps, structs) or 17b (crypto, json, regex);
+  ROADMAP item 17b (crypto, json, regex);
 - cube roots (``cbrt(64)`` is the reference's 3.9999999999999996) and
   the bounded family's special values are exact; a subnormal input
   keeps its IEEE value in the port where XLA's CPU backend flushes it
@@ -155,8 +157,12 @@ def test_registry_is_the_references():
            if f.__module__.rsplit(".", 1)[-1]
            in ("functions", "fn_strings", "fn_dates")}
     assert len(ref) == 101
-    assert set(tfunctions._REGISTRY) == ref
-    rest = set(jfunctions._REGISTRY) - ref
+    nested = {n for n, f in jfunctions._REGISTRY.items()
+              if f.__module__.rsplit(".", 1)[-1]
+              in ("fn_arrays", "fn_structs")}
+    assert len(nested) == 31
+    assert set(tfunctions._REGISTRY) == ref | nested
+    rest = set(jfunctions._REGISTRY) - ref - nested
     assert set(tfunctions.LATER) == rest
     assert set(cases.FUNCTIONS) == ref
 
@@ -176,8 +182,8 @@ def test_decimal_casts_and_list_access_raise(batches):
     """Casts to decimal(0, 0) evaluate as the reference's (the decimal
     cast matrix is ``test_torch_eval.py``'s), but int64.min, which
     passes the reference's wrapped range check and is null in Spark and
-    the port (ROADMAP Queue 3 item 24); a list access raises naming
-    16f."""
+    the port (ROADMAP Queue 3 item 24); a list access evaluates as the
+    reference's."""
     _jb, _js, tb, ts = batches
     i64 = tb.columns[cases.COLS.index("i64")].data.numpy()[:cases.ROWS]
     wraps = i64 == np.iinfo(np.int64).min
@@ -188,9 +194,16 @@ def test_decimal_casts_and_list_access_raise(batches):
         if skip is not None:
             assert skip.any()
             assert not got.validity.numpy()[:cases.ROWS][skip].any()
-    with pytest.raises(NotImplementedError, match="16f"):
-        teval.evaluate(tir.GetIndexedField(tir.ScalarFunction(
-            "array", (tir.ColumnRef(2),)), 0), tb, ts)
+    jb, js = _jb, _js
+    got = teval.evaluate(tir.GetIndexedField(tir.ScalarFunction(
+        "array", (tir.ColumnRef(2),)), 0), tb, ts)
+    want = jeval.evaluate(jir.GetIndexedField(jir.ScalarFunction(
+        "array", (jir.ColumnRef(2),)), 0), jb, js)
+    n = cases.ROWS
+    gv = got.validity.numpy()[:n]
+    np.testing.assert_array_equal(gv, np.asarray(want.validity)[:n])
+    np.testing.assert_array_equal(got.data.numpy()[:n][gv],
+                                  np.asarray(want.data)[:n][gv])
 
 
 @pytest.mark.parametrize("k", range(len(vectors.CASES)))

@@ -271,7 +271,8 @@ def test_unported_nodes_raise_naming_them(data):
         "output_resource_id": tpb.PlanNode(
             broadcast_exchange=tpb.BroadcastExchangeNode(
                 child=scan, output_resource_id="build")),
-        "generate": tpb.PlanNode(generate=tpb.GenerateNode(child=scan)),
+        "generate": tpb.PlanNode(generate=tpb.GenerateNode(
+            child=scan, kind="udtf", udtf_registry_name="u")),
         "pushdown": tpb.PlanNode(parquet_scan=tpb.ParquetScanNode(
             files=tables["store_sales"], predicates=[tpb.ExprNode(
                 column=tpb.ColumnRefE(index=0))])),

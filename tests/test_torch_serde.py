@@ -16,7 +16,8 @@
   ``task_bytes()`` equals the reference DataFrame's byte for byte;
 - decimal literals and casts keep their precision and scale;
 - ``InList`` over strings and numbers round-trips to the reference's
-  bytes; the nodes of ROADMAP items 17b and 16f raise naming their item;
+  bytes; the nodes of ROADMAP item 17b raise naming it, and
+  ``get_struct_field`` parses;
 - ``DataFrame.partitioning`` equals the reference's after every
   transform that carries, sets or drops it;
 - reference bytes parse in the port and port bytes in the reference;
@@ -135,9 +136,9 @@ def test_unported_expressions_raise_naming_the_node():
     row_num = tpb.ExprNode(nullary=tpb.NullaryE(kind="row_num"))
     with pytest.raises(NotImplementedError, match="nullary.*item 17b"):
         tserde.parse_expr(row_num)
-    with pytest.raises(NotImplementedError, match="get_struct_field.*16f"):
-        tserde.parse_expr(tpb.ExprNode(get_struct_field=tpb.GetStructFieldE(
-            child=tserde.expr_to_proto(tir.ColumnRef(0)))))
+    gsf = tpb.ExprNode(get_struct_field=tpb.GetStructFieldE(
+        child=tserde.expr_to_proto(tir.ColumnRef(0)), ordinal=1))
+    assert tserde.parse_expr(gsf) == tir.GetStructField(tir.ColumnRef(0), 1)
     with pytest.raises(NotImplementedError, match="SortOrder"):
         tserde.expr_to_proto(tir.SortOrder(tir.ColumnRef(0)))
 
@@ -241,12 +242,22 @@ def test_bytes_parse_across_packages(name, task_bytes):
 
 
 def test_distinct_aggregates_raise():
-    ts = TSession(device="cpu")
+    """DISTINCT aggregates once raised; now their plans, over one
+    partition and over two, serialize to the reference's bytes."""
     table = pa.table({"k": pa.array(np.arange(4)), "v": pa.array([1] * 4)})
-    df = ts.from_arrow(table).group_by("k")
-    from auron_tpu_torch.frontend.dataframe import col, functions as F
-    with pytest.raises(NotImplementedError, match="DISTINCT"):
-        df.agg(F.count(col("v"), distinct=True))
+
+    def plan(dsl, session, parts):
+        df = session.from_arrow(table, name="t")
+        if parts > 1:
+            df = df.repartition(parts)
+        F, col = dsl.functions, dsl.col
+        return df.group_by("k").agg(
+            F.count(col("v"), distinct=True), F.sum(col("v"), distinct=True),
+            F.collect_set(col("v")), F.collect_list(col("k"))).plan
+
+    for parts in (1, 2):
+        assert plan(tdf, TSession(device="cpu"), parts).SerializeToString() \
+            == plan(rdf, RSession(), parts).SerializeToString()
 
 
 def _provenance_chain(session, tables, dsl) -> dict:

@@ -10,12 +10,12 @@ from auron_tpu.it import tpcds_queries as rqueries
 from auron_tpu_torch.it import runner
 from auron_tpu_torch.it import tpcds
 from auron_tpu_torch.it.tpcds_queries import QUERIES
-from tests.torch_suite_cases import (DISTINCT, TPCDS_SCALE,  # noqa: F401
+from tests.torch_suite_cases import (TPCDS_SCALE,  # noqa: F401
                                      _one_torch_thread, first_task,
                                      suite_results, zero_sids)
 
 THIRD = QUERIES[2::3]
-RUNNABLE = [q.name for q in THIRD if q.name not in DISTINCT]
+RUNNABLE = [q.name for q in THIRD]
 
 
 @pytest.fixture(scope="module")

@@ -21,10 +21,6 @@ from auron_tpu_torch.it import runner
 TPCDS_SCALE = 0.05
 TPCH_SCALE = 0.3
 
-#: the TPC-DS queries with a DISTINCT aggregate: their collect_set state
-#: needs the list columns of ROADMAP item 16f-c
-DISTINCT = ("q16", "q94", "q95", "q28")
-
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
